@@ -1,0 +1,37 @@
+"""sda_tpu_torch: the secure-aggregation framework on PyTorch and CUDA.
+
+A port of the JAX/Pallas package ``sda_tpu`` to one NVIDIA H100. It keeps
+the reference's module names so that each counterpart is easy to find, and
+imports nothing of it (nor JAX): what it needs from the reference's host
+modules it keeps as its own copies.
+
+Layer map (bottom-up):
+
+- :mod:`sda_tpu_torch.fields`   prime-field arithmetic (host numpy)
+- :mod:`sda_tpu_torch.ntt`      number-theoretic transform matrices
+- :mod:`sda_tpu_torch.sharing`  additive & packed-Shamir schemes and their
+  device spec
+- :mod:`sda_tpu_torch.ops`      limb arithmetic, the CIOS modmat, and the
+  byte-limb fused kernel (CUDA C++ under ``ops/csrc``)
+- :mod:`sda_tpu_torch.engine`   the bulk aggregation executor
+- :mod:`sda_tpu_torch.models`   the federated-aggregation workload
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from sda_tpu_torch.utils.errors import (
+    Invalid,
+    InvalidCredentials,
+    PermissionDenied,
+    SdaError,
+)
+
+__all__ = [
+    "SdaError",
+    "PermissionDenied",
+    "InvalidCredentials",
+    "Invalid",
+    "__version__",
+]

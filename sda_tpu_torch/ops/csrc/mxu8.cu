@@ -1,0 +1,545 @@
+// Fused byte-limb share + combine (+ reconstruct) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel sda_tpu/ops/mxu8.py::_mxu8_kernel (launched by
+// fused_share_combine_mxu8). It computes what that kernel computes, per
+// lane (batch position) b:
+//
+//   acc[:, b]  = bigS^T . sec[:, b]                  biased int8 x int8 -> int32
+//              + bigR^T . rand2[:, b]                in-kernel randomness (PRNG mode)
+//   bytes      = u32 carry chain of acc (bias constants C1, 128 * acc[ones])
+//   [stage 2]  acc2 = big2^T . (bytes - 128), second chain (constants C2)
+//   out[l * n_out + i, b] = limb l of the canonical result i (pseudo-Mersenne
+//                           fold, or Montgomery chunk fold)
+//
+// Design (first, simple, correct cut):
+//   * One block of 256 threads (8 warps) per tile of kT = 128 lanes; blocks
+//     are independent (the TPU grid carried nothing across steps either).
+//   * Stage-1 contraction on the int8 tensor cores with
+//     mma.sync.m16n8k32.s32.s8.s8.s32. Each warp owns 16 lanes (two n8
+//     tiles) and all MT m16 tiles of output rows. K streams in tiles of 64
+//     rows: bigS's tile is staged in shared memory as is (rows are K
+//     contiguous), and sec's tile, which is lane-contiguous in device memory,
+//     is transposed to K-contiguous while it is staged (4x4 byte transposes
+//     with __byte_perm), so the 6 GB operand is never transposed in memory.
+//   * Randomness: Philox4x32-10 written here, one stream per
+//     (lane, participant draw, word group): key = (seed, 0), counter =
+//     (global lane, draw, word group, 0); output word q of a call is PRNG
+//     word 4 * group + q of that (lane, draw). Per word: accR += w,
+//     accO += w >> 16, then accE = accR - (accO << 16), all uint32. The
+//     biased bytes of accE / accO, in the (c, parity, w) row order of the
+//     randomness-sum matrix, are the B operand of a second MMA pass against
+//     bigR.
+//   * Epilogue: the accumulator is spilled to shared memory; two threads per
+//     lane run the carry chains, the optional stage-2 contraction (88 x 25 at
+//     the headline, scalar), the fold, and the limb-major output writes.
+//
+// Bound on the H100 SXM at the headline (768 participants, 1,000,002 dims,
+// p = 2^63 - 871): sec is 18,432 x 333,824 int8 = 6.15 GB read once, about
+// 1.84 ms at 3.35 TB/s; the contractions are 1.19e12 int8 operations, about
+// 0.6 ms at 1,979 TOPS; the randomness is 2.05e9 Philox words on the CUDA
+// cores, which is likely the binding stream on this card. This design does
+// nothing yet about that bound: no cp.async/TMA pipelining of the sec
+// stream, no wgmma, and a full ten-round Philox per four words. Those are
+// later work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kT = 128;        // lanes per block
+constexpr int kThreads = 256;  // 8 warps x 16 lanes
+constexpr int kKT = 64;        // K rows per staged tile
+constexpr int kSA = kKT + 16;  // sA row stride in bytes (== 16 mod 32: conflict-free fragments)
+constexpr int kMaxL = 8;       // 16-bit limbs per element (128-bit moduli)
+constexpr int kMaxB = 32;      // bytes per chain (L8 + residual limbs)
+constexpr int kMaxW = 16;      // 16-bit lanes regrouped from a chain
+constexpr int kMaxMT = 12;     // m16 tiles of output rows (n * L8 + 1 <= 192)
+constexpr int kNParams = 27;
+
+struct Params {
+  int K;         // sec rows (participants x slots x L8)
+  int nbp;       // lanes
+  int n_pad;     // rows of bigS / bigR
+  int Kr;        // randomness operand rows (0: caller randomness, no PRNG)
+  int Kr_pad;    // bigR columns as stored (multiple of 32)
+  int n;         // clerks (stage-1 outputs)
+  int L8;        // bytes per element
+  int n_res1;    // residual carry bytes of the stage-1 chain
+  int n2;        // stage-2 outputs (0: no fused reconstruction)
+  int n_pad2;    // rows of big2
+  int rows2;     // stage-2 operand rows = (L8 + n_res1) * n
+  int n_res2;    // residual carry bytes of the stage-2 chain
+  int L;         // 16-bit limbs per element
+  int chunk8;    // bytes per canonical-by-construction chunk
+  int use_special;
+  int sp_e;      // p = 2^sp_e - sp_c when use_special
+  int sp_c;
+  int p_inv_w;   // -p^-1 mod 2^16
+  int rp;        // randomness draws summed per slot
+  int wpp;       // PRNG words per draw
+  int n_bytes;   // bytes per randomness field sum
+  uint32_t seed;
+  int off_c1;    // offsets into the uint32 constant table
+  int off_c2;
+  int off_consts;
+  int off_p;
+  int n_consts;
+};
+
+// ----------------------------------------------------------------- Philox
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint32_t x, int c) {
+  return c < 4 ? (x >> (8 * c)) & 0xFFu : 0u;
+}
+
+__device__ __forceinline__ uint32_t shl32(uint32_t x, int s) {
+  return s >= 32 ? 0u : x << s;
+}
+
+// ------------------------------------------------------- limb arithmetic
+
+// Subtract p if (carry, s) >= p (s: L lanes of 16 bits).
+__device__ void cond_sub(uint32_t* s, uint32_t carry, const uint32_t* pl, int L) {
+  uint32_t d[kMaxL];
+  uint32_t borrow = 0;
+  for (int j = 0; j < L; ++j) {
+    const uint32_t t = s[j] - pl[j] - borrow;
+    d[j] = t & 0xFFFFu;
+    borrow = (t >> 16) & 1u;
+  }
+  if (carry > 0 || borrow == 0)
+    for (int j = 0; j < L; ++j) s[j] = d[j];
+}
+
+__device__ void add_mod(uint32_t* a, const uint32_t* b, const uint32_t* pl, int L) {
+  uint32_t carry = 0;
+  for (int j = 0; j < L; ++j) {
+    const uint32_t t = a[j] + b[j] + carry;
+    a[j] = t & 0xFFFFu;
+    carry = t >> 16;
+  }
+  cond_sub(a, carry, pl, L);
+}
+
+// CIOS Montgomery product a * b * 2^(-16L) mod p; every step fits uint32.
+__device__ void mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                         const uint32_t* pl, uint32_t p_inv_w, int L) {
+  uint32_t T[kMaxL + 2];
+  for (int j = 0; j < L + 2; ++j) T[j] = 0;
+  for (int i = 0; i < L; ++i) {
+    uint32_t c = 0, t;
+    for (int j = 0; j < L; ++j) {
+      t = T[j] + a[i] * b[j] + c;
+      T[j] = t & 0xFFFFu;
+      c = t >> 16;
+    }
+    t = T[L] + c;
+    T[L] = t & 0xFFFFu;
+    T[L + 1] += t >> 16;
+    const uint32_t mq = (T[0] * p_inv_w) & 0xFFFFu;
+    t = T[0] + mq * pl[0];
+    c = t >> 16;
+    for (int j = 1; j < L; ++j) {
+      t = T[j] + mq * pl[j] + c;
+      T[j - 1] = t & 0xFFFFu;
+      c = t >> 16;
+    }
+    t = T[L] + c;
+    T[L - 1] = t & 0xFFFFu;
+    T[L] = T[L + 1] + (t >> 16);
+    T[L + 1] = 0;
+  }
+  cond_sub(T, T[L], pl, L);
+  for (int j = 0; j < L; ++j) out[j] = T[j];
+}
+
+// Pseudo-Mersenne canonicalisation (p = 2^e - c): byte limbs -> L lanes.
+__device__ void fold_special(const uint32_t* bytes, int nb, const Params& p,
+                             const uint32_t* pl, uint32_t* out) {
+  const int L = p.L, e = p.sp_e;
+  const uint32_t c = (uint32_t)p.sp_c;
+  uint32_t ln[kMaxW];
+  int nl = (nb + 1) / 2;
+  for (int w = 0; w < nl; ++w)
+    ln[w] = bytes[2 * w] | (2 * w + 1 < nb ? bytes[2 * w + 1] << 8 : 0u);
+  const int wE = e / 16, sh = e % 16;
+  for (int round = 0; round < 2; ++round) {
+    uint32_t hi = ln[wE] >> sh;
+    int bits = 16 - sh;
+    for (int w = wE + 1; w < nl; ++w) {
+      hi |= shl32(ln[w], bits);
+      bits += 16;
+    }
+    ln[wE] &= (1u << sh) - 1u;
+    for (int w = wE + 1; w < L; ++w) ln[w] = 0;
+    nl = L;
+    // V mod p = lo + hi * c; 16-bit halves keep every product inside u32
+    const uint32_t add0 = (hi & 0xFFFFu) * c, add1 = (hi >> 16) * c;
+    const uint32_t inc[3] = {add0 & 0xFFFFu, (add0 >> 16) + (add1 & 0xFFFFu), add1 >> 16};
+    uint32_t carry = 0;
+    for (int w = 0; w < L; ++w) {
+      const uint32_t t = ln[w] + (w < 3 ? inc[w] : 0u) + carry;
+      ln[w] = t & 0xFFFFu;
+      carry = t >> 16;
+    }
+  }
+  cond_sub(ln, 0u, pl, L);
+  for (int j = 0; j < L; ++j) out[j] = ln[j];
+}
+
+// Montgomery chunk fold: chunk t of chunk8 bytes times Montgomery-form 2^(8*chunk8*t).
+__device__ void fold_mont(const uint32_t* bytes, int nb, const Params& p, const uint32_t* pl,
+                          const uint32_t* consts, uint32_t* out) {
+  const int L = p.L;
+  const int nch = (nb + p.chunk8 - 1) / p.chunk8;
+  uint32_t lanes16[kMaxL], term[kMaxL];
+  for (int t = 0; t < nch; ++t) {
+    for (int j = 0; j < L; ++j) lanes16[j] = 0;
+    for (int j = 0; j < p.chunk8 && t * p.chunk8 + j < nb; ++j)
+      lanes16[j / 2] |= bytes[t * p.chunk8 + j] << (8 * (j % 2));
+    mont_mul(lanes16, consts + t * L, t ? term : out, pl, (uint32_t)p.p_inv_w, L);
+    if (t) add_mod(out, term, pl, L);
+  }
+}
+
+__device__ void fold_and_store(const uint32_t* bytes, int nb, const Params& p,
+                               const uint32_t* tables, int32_t* out, int n_out, int i, int lane) {
+  uint32_t res[kMaxL];
+  const uint32_t* pl = tables + p.off_p;
+  if (p.use_special)
+    fold_special(bytes, nb, p, pl, res);
+  else
+    fold_mont(bytes, nb, p, pl, tables + p.off_consts, res);
+  for (int l = 0; l < p.L; ++l)
+    out[(size_t)(l * n_out + i) * p.nbp + lane] = (int32_t)res[l];
+}
+
+// --------------------------------------------------------------- staging
+
+// A tile: rows [0, rows) x columns [col0, col0 + kKT) of a row-major int8
+// matrix with lda columns (lda, col0 multiples of 4); zero outside.
+__device__ void load_a_tile(int8_t* sA, const int8_t* A, int lda, int nrows, int rows,
+                            int col0, int tid) {
+  constexpr int kWords = kKT / 4;
+  for (int idx = tid; idx < rows * kWords; idx += kThreads) {
+    const int r = idx / kWords, q = idx % kWords, col = col0 + 4 * q;
+    uint32_t w = 0;
+    if (r < nrows && col < lda) w = *reinterpret_cast<const uint32_t*>(A + (size_t)r * lda + col);
+    *reinterpret_cast<uint32_t*>(sA + r * kSA + 4 * q) = w;
+  }
+}
+
+// B tile: sec rows [k0, k0 + kKT) x lanes [lane0, lane0 + kT), stored
+// transposed (sB[lane][k], row stride sb bytes) with 4x4 byte transposes.
+__device__ void load_b_tile(int8_t* sB, int sb, const int8_t* sec, int K, int nbp, int k0,
+                            int lane0, int tid) {
+  const bool vec = (nbp & 3) == 0;
+  for (int idx = tid; idx < (kKT / 4) * (kT / 4); idx += kThreads) {
+    // a warp covers 8 lane quads x 4 k quads: 32-byte sectors per row
+    const int lq = (idx & 7) + 8 * ((idx >> 5) & 3);
+    const int kq = ((idx >> 3) & 3) + 4 * (idx >> 7);
+    const int lane = lane0 + 4 * lq;
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 4 * kq + j;
+      r[j] = 0;
+      if (k < K) {
+        const int8_t* row = sec + (size_t)k * nbp;
+        if (vec && lane + 3 < nbp) {
+          r[j] = *reinterpret_cast<const uint32_t*>(row + lane);
+        } else {
+          for (int b = 0; b < 4; ++b)
+            if (lane + b < nbp) r[j] |= (uint32_t)(uint8_t)row[lane + b] << (8 * b);
+        }
+      }
+    }
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(sB + (4 * lq) * sb + 4 * kq);
+    const int sw = sb / 4;
+    dst[0] = __byte_perm(t0, t2, 0x5410);
+    dst[sw] = __byte_perm(t0, t2, 0x7632);
+    dst[2 * sw] = __byte_perm(t1, t3, 0x5410);
+    dst[3 * sw] = __byte_perm(t1, t3, 0x7632);
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// acc[mt][nt] += sA[mt tile] . sB[warp's nt tile], over ksteps steps of 32.
+template <int MT>
+__device__ __forceinline__ void mma_chunk(int (&acc)[MT][2][4], const int8_t* sA, const int8_t* sB,
+                                          int sb, int boff, int ksteps, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t b[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int8_t* bp = sB + (warp * 16 + nt * 8 + g) * sb + boff + ks * 32 + 4 * t;
+      b[nt][0] = *reinterpret_cast<const uint32_t*>(bp);
+      b[nt][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int8_t* ap = sA + (mt * 16 + g) * kSA + ks * 32 + 4 * t;
+      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
+      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * kSA);
+      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 16);
+      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * kSA + 16);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) mma_s8(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ kernel
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
+                  const int8_t* __restrict__ bigr, const int8_t* __restrict__ big2,
+                  const uint32_t* __restrict__ tables, int32_t* __restrict__ out, Params p,
+                  int sb, int stage_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);
+  int8_t* sB = sA + MT * 16 * kSA;
+  uint8_t* sB1 = smem;  // stage-1 bytes for stage 2, reuses the tiles' space
+  int32_t* sAcc = reinterpret_cast<int32_t*>(smem + stage_bytes);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lane0 = blockIdx.x * kT;
+  const int rows_used = p.n * p.L8 + 1;
+
+  int acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+
+  // stage 1: bigS^T . sec
+  for (int k0 = 0; k0 < p.K; k0 += kKT) {
+    __syncthreads();
+    load_a_tile(sA, bigs, p.K, p.n_pad, MT * 16, k0, tid);
+    load_b_tile(sB, sb, sec, p.K, p.nbp, k0, lane0, tid);
+    __syncthreads();
+    const int ksteps = (min(kKT, p.K - k0) + 31) / 32;
+    mma_chunk<MT>(acc, sA, sB, sb, 0, ksteps, warp, lane);
+  }
+
+  // in-kernel randomness: u16-field sums over rp draws -> biased bytes
+  if (p.Kr > 0) {
+    __syncthreads();
+    const int groups = (p.wpp + 3) / 4;
+    for (int idx = tid; idx < kT * groups; idx += kThreads) {
+      const int ll = idx % kT, g = idx / kT, gl = lane0 + ll;
+      uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
+      if (gl < p.nbp) {
+        for (int j = 0; j < p.rp; ++j) {
+          uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
+          philox4x32_10(c, p.seed, 0u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            accR[q] += c[q];
+            accO[q] += c[q] >> 16;
+          }
+        }
+      }
+      int8_t* row = sB + ll * sb;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int w = 4 * g + q;
+        if (w >= p.wpp) continue;
+        // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
+        const uint32_t accE = accR[q] - (accO[q] << 16);
+        for (int cb = 0; cb < p.n_bytes; ++cb) {
+          row[(2 * cb) * p.wpp + w] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
+          row[(2 * cb + 1) * p.wpp + w] = (int8_t)(byte_of(accO[q], cb) ^ 0x80u);
+        }
+      }
+    }
+    for (int kc = 0; kc < p.Kr_pad; kc += kKT) {
+      __syncthreads();
+      load_a_tile(sA, bigr, p.Kr_pad, p.n_pad, MT * 16, kc, tid);
+      __syncthreads();
+      mma_chunk<MT>(acc, sA, sB, sb, kc, min(kKT, p.Kr_pad - kc) / 32, warp, lane);
+    }
+  }
+
+  // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8
+  {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
+        if (r < rows_used) {
+          sAcc[r * kT + col] = acc[mt][nt][0];
+          sAcc[r * kT + col + 1] = acc[mt][nt][1];
+        }
+        if (r + 8 < rows_used) {
+          sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
+          sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
+        }
+      }
+  }
+  __syncthreads();
+
+  // epilogue: two threads per lane
+  const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
+  const int L8 = p.L8;
+  const uint32_t* c1 = tables + p.off_c1;
+  uint32_t bytes[kMaxB];
+  const uint32_t s128 = (uint32_t)sAcc[(p.n * L8) * kT + ll] * 128u;
+  for (int i = half; i < p.n; i += kThreads / kT) {
+    uint32_t carry = 0;
+    for (int c = 0; c < L8; ++c) {
+      const uint32_t t = (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[i * L8 + c] + s128 + carry;
+      bytes[c] = t & 0xFFu;
+      carry = t >> 8;
+    }
+    for (int r = 0; r < p.n_res1; ++r) {
+      bytes[L8 + r] = carry & 0xFFu;
+      carry >>= 8;
+    }
+    if (p.n2) {
+      for (int l1 = 0; l1 < L8 + p.n_res1; ++l1) sB1[(l1 * p.n + i) * kT + ll] = (uint8_t)bytes[l1];
+    } else if (gl < p.nbp) {
+      fold_and_store(bytes, L8 + p.n_res1, p, tables, out, p.n, i, gl);
+    }
+  }
+  if (p.n2) {
+    __syncthreads();
+    const uint32_t* c2 = tables + p.off_c2;
+    const int8_t* ones_row = big2 + (size_t)(p.n2 * L8) * p.rows2;
+    int ones = 0;
+    for (int q = 0; q < p.rows2; ++q) ones += ones_row[q] * ((int)sB1[q * kT + ll] - 128);
+    const uint32_t s128_2 = (uint32_t)ones * 128u;
+    for (int i2 = half; i2 < p.n2; i2 += kThreads / kT) {
+      uint32_t carry = 0;
+      for (int c = 0; c < L8; ++c) {
+        const int8_t* row = big2 + (size_t)(i2 * L8 + c) * p.rows2;
+        int a = 0;
+        for (int q = 0; q < p.rows2; ++q) a += row[q] * ((int)sB1[q * kT + ll] - 128);
+        const uint32_t t = (uint32_t)a + c2[i2 * L8 + c] + s128_2 + carry;
+        bytes[c] = t & 0xFFu;
+        carry = t >> 8;
+      }
+      for (int r = 0; r < p.n_res2; ++r) {
+        bytes[L8 + r] = carry & 0xFFu;
+        carry >>= 8;
+      }
+      if (gl < p.nbp) fold_and_store(bytes, L8 + p.n_res2, p, tables, out, p.n2, i2, gl);
+    }
+  }
+}
+
+template <int MT>
+int launch(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, const int8_t* big2,
+           const uint32_t* tables, int32_t* out, const Params& p, cudaStream_t stream) {
+  const int sb = (p.Kr_pad > kKT ? p.Kr_pad : kKT) + 16;  // == 16 mod 32
+  int stage_bytes = MT * 16 * kSA + kT * sb;
+  const int b1_bytes = p.n2 ? p.rows2 * kT : 0;
+  if (b1_bytes > stage_bytes) stage_bytes = b1_bytes;
+  stage_bytes = (stage_bytes + 15) & ~15;
+  const size_t smem = (size_t)stage_bytes + (size_t)(p.n * p.L8 + 1) * kT * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(mxu8_fused_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.nbp + kT - 1) / kT);
+  mxu8_fused_kernel<MT><<<grid, kThreads, smem, stream>>>(sec, bigs, bigr, big2, tables, out, p,
+                                                          sb, stage_bytes);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point. iparams holds the kNParams ints of Params in field order
+// (seed as its 32-bit pattern). Returns a cudaError_t (0 on success).
+extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* bigr,
+                              const void* big2, const void* tables, void* out,
+                              const void* iparams, int n_iparams, void* stream) {
+  if (n_iparams != kNParams) return (int)cudaErrorInvalidValue;
+  const int* v = static_cast<const int*>(iparams);
+  Params p;
+  p.K = v[0];
+  p.nbp = v[1];
+  p.n_pad = v[2];
+  p.Kr = v[3];
+  p.Kr_pad = v[4];
+  p.n = v[5];
+  p.L8 = v[6];
+  p.n_res1 = v[7];
+  p.n2 = v[8];
+  p.n_pad2 = v[9];
+  p.rows2 = v[10];
+  p.n_res2 = v[11];
+  p.L = v[12];
+  p.chunk8 = v[13];
+  p.use_special = v[14];
+  p.sp_e = v[15];
+  p.sp_c = v[16];
+  p.p_inv_w = v[17];
+  p.rp = v[18];
+  p.wpp = v[19];
+  p.n_bytes = v[20];
+  p.seed = (uint32_t)v[21];
+  p.off_c1 = v[22];
+  p.off_c2 = v[23];
+  p.off_consts = v[24];
+  p.off_p = v[25];
+  p.n_consts = v[26];
+  if (p.L > kMaxL || p.L8 + (p.n_res1 > p.n_res2 ? p.n_res1 : p.n_res2) > kMaxB ||
+      (p.K & 3) || (p.Kr_pad & 31))
+    return (int)cudaErrorInvalidValue;
+  const auto* s = static_cast<const int8_t*>(sec);
+  const auto* a = static_cast<const int8_t*>(bigs);
+  const auto* r = static_cast<const int8_t*>(bigr);
+  const auto* b2 = static_cast<const int8_t*>(big2);
+  const auto* tb = static_cast<const uint32_t*>(tables);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch ((p.n * p.L8 + 1 + 15) / 16) {
+    case 1: return launch<1>(s, a, r, b2, tb, o, p, st);
+    case 2: return launch<2>(s, a, r, b2, tb, o, p, st);
+    case 3: return launch<3>(s, a, r, b2, tb, o, p, st);
+    case 4: return launch<4>(s, a, r, b2, tb, o, p, st);
+    case 5: return launch<5>(s, a, r, b2, tb, o, p, st);
+    case 6: return launch<6>(s, a, r, b2, tb, o, p, st);
+    case 7: return launch<7>(s, a, r, b2, tb, o, p, st);
+    case 8: return launch<8>(s, a, r, b2, tb, o, p, st);
+    case 9: return launch<9>(s, a, r, b2, tb, o, p, st);
+    case 10: return launch<10>(s, a, r, b2, tb, o, p, st);
+    case 11: return launch<11>(s, a, r, b2, tb, o, p, st);
+    case 12: return launch<12>(s, a, r, b2, tb, o, p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,133 @@
+"""The port's slice as a whole (engine and model) against sda_tpu.
+
+Schemes are built in the JAX package, their matrices carried across with
+``spec_from_numpy``, and the same numpy secrets and randomness go through
+both engines; every comparison is exact limb equality.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from sda_tpu.engine import TpuAggregationEngine
+from sda_tpu.sharing import AdditiveScheme, PackedShamirScheme
+from sda_tpu_torch.engine import TorchAggregationEngine, limbs_from_numpy, spec_from_numpy
+from sda_tpu_torch.models import FederatedAggregation
+
+REF = dict(
+    secret_count=3,
+    share_count=8,
+    privacy_threshold=4,
+    prime_modulus=433,
+    omega_secrets=354,
+    omega_shares=150,
+)
+
+SCHEMES = [
+    pytest.param(PackedShamirScheme(**REF), id="packed433"),
+    pytest.param(AdditiveScheme(share_count=5, modulus=433), id="additive433"),
+    pytest.param(AdditiveScheme(share_count=3, modulus=(1 << 61) - 1), id="additive61bit"),
+]
+
+
+def _engines(scheme, d):
+    ref = TpuAggregationEngine(scheme.device_spec(), d)
+    s = ref.spec
+    spec = spec_from_numpy(s.modulus, s.secret_count, s.share_count, s.randomness_count,
+                           s.share_matrix, s.reconstruct_matrix)
+    return ref, TorchAggregationEngine(spec, d, device="cpu")
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_engine_aggregate_matches_reference(scheme):
+    d, p_count = 10, 6
+    ref, eng = _engines(scheme, d)
+    modulus = ref.spec.modulus
+    rng = np.random.default_rng(0)
+    secrets = rng.integers(0, min(modulus, 2**31), size=(p_count, d))
+    enc = ref.encode_secrets(secrets.astype(object))
+    rand = ref.random_ext(p_count, rng=rng)
+    assert np.array_equal(enc.astype(np.int64), eng.encode_secrets(secrets).numpy())
+    ext = np.concatenate([enc, rand], axis=2)
+    want_shares = ref.share(jnp.asarray(ext))
+    got_shares = eng.share(limbs_from_numpy(ext))
+    assert np.array_equal(np.asarray(want_shares).astype(np.int64), got_shares.numpy())
+    want = ref.aggregate(jnp.asarray(enc), jnp.asarray(rand))
+    got = eng.aggregate(limbs_from_numpy(enc), limbs_from_numpy(rand))
+    assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+    assert [int(x) for x in eng.decode_output(got)] == [
+        int(x) % modulus for x in secrets.sum(axis=0)
+    ]
+    assert [int(x) for x in eng.decode_output(got)] == [
+        int(x) for x in ref.decode_output(np.asarray(want))
+    ]
+
+
+def test_stage_outputs_reconstruct_on_host():
+    """Device shares decode to values the host scheme reconstructs."""
+    import torch
+
+    from sda_tpu_torch.fields import positive
+    from sda_tpu_torch.sharing import PackedShamirScheme as PortScheme
+
+    scheme = PortScheme(**REF)
+    eng = TorchAggregationEngine(scheme.device_spec(), 4, device="cpu")
+    enc = eng.encode_secrets(np.array([[1, 2, 3, 4]]))
+    rand = eng.random_ext(1, rng=np.random.default_rng(1))
+    shares = eng.share(torch.cat([enc, rand], dim=2))
+    per_clerk = eng.decode_shares(shares)[0].T  # [n, nb]
+    out = scheme.reconstruct([(i, per_clerk[i]) for i in range(8)], dimension=4)
+    assert [int(x) for x in positive(out, 433)] == [1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("rp_lanes", [(5, 8), (2, 16)])
+def test_aggregate_mxu8_kernel_cpu_reveals_sum(rp_lanes):
+    """The one-launch byte-limb path (plain version on the CPU) reveals the
+    modular participant sum; the combined-only entry point reconstructs to
+    the same values through the CIOS path."""
+    import torch
+
+    from sda_tpu_torch.ops.mxu8 import batched_from_planar_lm
+
+    P, lanes = rp_lanes
+    model = FederatedAggregation.packed_64bit(dimension=40, device="cpu")
+    eng = model.engine
+    rng = np.random.default_rng(P)
+    secrets = eng.encode_secrets(rng.integers(0, 1 << 62, size=(P, 40)))
+    sec8 = eng.planar8_secrets(secrets, lanes=lanes)
+    out = eng.aggregate_mxu8_kernel(sec8, 5, p_count=P, lanes=lanes)
+    assert out.shape == (eng.nb, 3, eng.ctx.L)
+    want = eng.ctx.sum_mod(secrets, axis=0)
+    assert torch.equal(out.to(torch.int64), want)
+    comb = eng.mxu8_kernel_combined(sec8, 5, p_count=P, lanes=lanes)
+    combined = batched_from_planar_lm(comb, eng.nb, 8).to(torch.int64)
+    assert torch.equal(eng.reconstruct(combined), want)
+
+
+def test_federated_model_masked_reveal():
+    model = FederatedAggregation.packed_64bit(dimension=64, device="cpu")
+    secrets, gen = model.example_inputs(participants=8, seed=1)
+    revealed = model.reveal(model.forward(secrets, gen))
+    raw = np.random.default_rng(1).integers(0, min(model.scheme_modulus, 1 << 31), size=(8, 64))
+    assert [int(x) for x in revealed] == [int(x) % model.scheme_modulus for x in raw.sum(axis=0)]
+
+
+def test_federated_model_128bit():
+    model = FederatedAggregation.packed_128bit(dimension=12, device="cpu")
+    assert model.engine.ctx.L == 8
+    secrets, gen = model.example_inputs(participants=4, seed=2)
+    revealed = model.reveal(model.forward(secrets, gen))
+    raw = np.random.default_rng(2).integers(0, min(model.scheme_modulus, 1 << 31), size=(4, 12))
+    assert [int(x) for x in revealed] == [int(x) % model.scheme_modulus for x in raw.sum(axis=0)]
+
+
+def test_federated_additive_small_and_from_key():
+    import torch
+
+    model = FederatedAggregation.additive_small(device="cpu")
+    assert model.engine.mxu8 is not None  # odd 433 > 7 bits
+    secrets, gen = model.example_inputs(participants=3, seed=4)
+    out = model.engine.aggregate_from_key(secrets, gen)
+    raw = np.random.default_rng(4).integers(0, 433, size=(3, 10))
+    assert [int(x) for x in model.reveal(out)] == [int(x) % 433 for x in raw.sum(axis=0)]
+    assert isinstance(gen, torch.Generator)

@@ -1,0 +1,64 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points refuse to drop to the CPU on their own."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        before = set(sys.modules)  # an interpreter hook may preload modules
+        import sda_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(sda_tpu_torch.__path__, "sda_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in set(sys.modules) - before
+                     if m == "jax" or m.startswith("jax.") or m == "sda_tpu" or m.startswith("sda_tpu."))
+        print(len(names), bad)
+        assert not bad, bad
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    count = int(proc.stdout.split()[0])
+    assert count >= 12  # every submodule of the slice was imported
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from sda_tpu_torch.engine import TorchAggregationEngine
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.sharing import AdditiveScheme
+
+    spec = AdditiveScheme(share_count=3, modulus=433).device_spec()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchAggregationEngine(spec, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedAggregation.packed_64bit(dimension=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedAggregation.additive_small(device="cuda")
+    assert FederatedAggregation.packed_64bit(dimension=16, device="cpu").engine.device.type == "cpu"
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    """Alone in a directory, chip_smoke.py exits non-zero and prints no
+    result line."""
+    (tmp_path / "chip_smoke.py").write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
