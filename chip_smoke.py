@@ -6,20 +6,39 @@
 Phases, each of which raises on failure:
 
 1. build: compile every kernel of the main path from ``sda_tpu_torch/ops/csrc``
-   (set-up) and print the card's name and power limit;
-2. compare: at a mid shape (16 participants, 3,000 dimensions, lanes=1024)
-   run the fused byte-limb kernel on the card and its plain version on CPU
-   copies of the same inputs, in caller-randomness and PRNG mode, with and
-   without fused reconstruction, with rand_participants = P and 1, at four
-   moduli; every output must be bit-equal;
+   (the three variants of ``mxu8.cu``, one nvcc each, all started together;
+   set-up), print ptxas's registers and spills for every instantiation and
+   the card's name and power limit;
+2. compare: at a mid shape (16 participants per chunk, 3,000 dimensions,
+   lanes=1024) run each kernel on the card and its plain version on CPU
+   copies of the same inputs at four moduli, in caller-randomness and PRNG
+   mode; every output must be bit-equal. B1: with and without fused
+   reconstruction, rand_participants = P and 1. B2: 2 and 3 chunks, with
+   and without reconstruction. B3: onto a non-zero canonical accumulator.
+   B2 must also equal the B1 + B3 streaming loop at the same seed (PRNG);
 3. headline: ``FederatedAggregation.packed_64bit(dimension=1_000_002)`` with
    768 participants through ``engine.aggregate_mxu8_kernel``: one step with
-   the launch counter reset before and read after, the reveal checked on
+   the launch counters reset before and read after, the reveal checked on
    the first 128 lanes against the modular participant sum, the plain
    version run on the card at the same shape and compared, then timed
    steps with CUDA events;
-4. forward: the CIOS ``forward`` of the same model at 32 participants must
-   reveal the numpy sum mod p.
+4. config 3: ``packed_128bit(dimension=10_002)``, 2 chunks x 512
+   participants, lanes 512, through ``engine.aggregate_mxu8_kernel_chunked``:
+   exactly one B2 launch for the step, the reveal on the first 512 lanes,
+   the kernel against its plain version on the card, timed steps;
+5. config 4: ``packed_64bit(dimension=1_000_002)``, 14 chunks x 768
+   participants (10,752; one resident chunk re-read per chunk) through
+   ``engine.aggregate_mxu8_kernel_streaming``: B1 x 2 and B3 x 13 for the
+   step, the reveal on the first 128 lanes, one B3 launch against its plain
+   version on the card, timed steps, and the back-to-back step on the host
+   clock with the device idle share (from the kernels' event times, and
+   from a ``torch.profiler`` trace of one step);
+6. serving: ``packed_64bit(dimension=1_002)``, 100 participants, 512 jobs x
+   384 lanes through ``concat_jobs_lanes`` + ``aggregate_mxu8_kernel_jobs``
+   with ``combined_randomness`` False and True: one launch each, jobs 0, 1
+   and 511 revealed in full, the kernel against its plain version, timed;
+7. forward: the CIOS ``forward`` of the headline model at 32 participants
+   must reveal the numpy sum mod p.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or run
@@ -30,6 +49,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,6 +58,10 @@ from pathlib import Path
 HEADLINE_DIM = 1_000_002
 HEADLINE_P = 768
 LANES = 1024
+DEVICE = "cuda"  # every tensor of the run lies on the card
+CONFIG3 = dict(dimension=10_002, p_chunk=512, n_chunks=2, lanes=512)
+CONFIG4 = dict(p_chunk=768, n_chunks=14)
+SERVING = dict(dimension=1_002, participants=100, jobs=512, job_lanes=384)
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 tensor-core ops/s
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
@@ -53,12 +77,69 @@ def _card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def _ptxas_summary(report: str) -> str:
+    """``MT:registers`` for every kernel instantiation in a ptxas report,
+    and the largest spill."""
+    regs, spill, current = {}, 0, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = max(spill, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            mt = re.search(r"mxu8_fused_kernelILi(\d+)E", current)
+            if mt:
+                regs[int(mt.group(1))] = int(m.group(1))
+            current = None
+    return " ".join(f"MT{k}:{v}" for k, v in sorted(regs.items())) + f"; max spill {spill} B"
+
+
 def phase_build():
-    from sda_tpu_torch.ops.cuda_build import load_kernel_library
+    from sda_tpu_torch.ops.cuda_build import build_kernel_libraries, ptxas_report
+    from sda_tpu_torch.ops.mxu8 import KERNEL_VARIANTS
 
     t0 = time.perf_counter()
-    load_kernel_library("mxu8.cu")
-    return time.perf_counter() - t0
+    build_kernel_libraries(KERNEL_VARIANTS.values())
+    seconds = time.perf_counter() - t0
+    return seconds, {name: _ptxas_summary(ptxas_report(*v)) for name, v in KERNEL_VARIANTS.items()}
+
+
+def _reset_counts():
+    from sda_tpu_torch.ops import mxu8 as m8
+
+    m8.mxu8_launches = m8.mxu8_chunked_launches = m8.mxu8_acc_launches = 0
+
+
+def _counts():
+    from sda_tpu_torch.ops import mxu8 as m8
+
+    return {"mxu8_fused": m8.mxu8_launches, "mxu8_chunked": m8.mxu8_chunked_launches,
+            "mxu8_acc": m8.mxu8_acc_launches}
+
+
+def _launch_cost(plan, nbp: int, acc: bool = False):
+    """(bytes, int8 operations) of one launch: every chunk of the operand,
+    the matrices and tables read once, the output written once (and, for
+    B3, the running sums read once), and the padded contractions."""
+    L = plan.mxu8.ctx.L
+    in_bytes = (plan.rows * plan.n_chunks * nbp + plan.bigs.numel() + plan.bigr.numel()
+                + plan.big2.numel() + 4 * plan.tables.numel())
+    out_bytes = 4 * L * plan.n_out * nbp * (2 if acc else 1)
+    ops = 2.0 * plan.n_pad * (plan.rows + plan.Kr) * nbp
+    if plan.n2:
+        ops += 2.0 * plan.big2.shape[0] * plan.big2.shape[1] * nbp
+    return in_bytes + out_bytes, ops * plan.n_chunks
+
+
+def _bound(costs):
+    """The least time for launches of the given (bytes, ops): the larger of
+    bytes over the HBM rate and int8 operations over the tensor-core rate."""
+    bytes_ms = sum(b for b, _ in costs) / PEAK_BYTES * 1e3
+    ops_ms = sum(o for _, o in costs) / PEAK_INT8 * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def _engines(dimension: int):
@@ -76,7 +157,7 @@ def _engines(dimension: int):
     }
     return {
         name: TorchAggregationEngine(
-            PackedShamirScheme(3, 8, 4, p, w2, w3).device_spec(), dimension, device="cuda"
+            PackedShamirScheme(3, 8, 4, p, w2, w3).device_spec(), dimension, device=DEVICE
         )
         for name, (p, w2, w3) in params.items()
     }
@@ -108,7 +189,7 @@ def phase_compare(P: int = 16, dimension: int = 3000):
                 plan = m8.mxu8_plan(
                     eng.mxu8, spec.share_matrix, sec8.shape[0], P, spec.secret_count,
                     spec.randomness_count, reconstruct_matrix=rec, rand_participants=rp,
-                    device="cuda",
+                    device=DEVICE,
                 )
                 plan_cpu = m8.mxu8_plan(
                     eng.mxu8, spec.share_matrix, sec8.shape[0], P, spec.secret_count,
@@ -139,32 +220,106 @@ def phase_compare(P: int = 16, dimension: int = 3000):
     return cases, max_err, mid
 
 
+def phase_compare_chunked(P: int = 16, dimension: int = 3000):
+    """B2 and B3 on the card against their plain version on CPU copies at
+    the mid shape; B2 against the B1 + B3 streaming loop in PRNG mode.
+    Returns (cases, max_abs_err) per kernel."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.ops import mxu8 as m8
+
+    cases = {"mxu8_chunked": 0, "mxu8_acc": 0}
+    max_err = {"mxu8_chunked": 0, "mxu8_acc": 0}
+
+    def check(kernel, got, want, what):
+        err = int((got.cpu().to(torch.int64) - want.cpu().to(torch.int64)).abs().max())
+        max_err[kernel] = max(max_err[kernel], err)
+        if err:
+            raise AssertionError(f"{kernel}: {what}: max err {err}")
+        cases[kernel] += 1
+
+    for name, eng in _engines(dimension).items():
+        spec = eng.spec
+        rng = np.random.default_rng(12)
+        secrets = eng.encode_secrets(
+            rng.integers(0, min(eng.ctx.p, 1 << 62), size=(3 * P, dimension))
+        )
+        ext = torch.cat([secrets, eng.random_ext(3 * P, rng=rng)], dim=2)
+
+        def plans(rows, rec=None, n_chunks=1):
+            return [m8.mxu8_plan(eng.mxu8, spec.share_matrix, rows, P, spec.secret_count,
+                                 spec.randomness_count, reconstruct_matrix=rec,
+                                 device=device, n_chunks=n_chunks)
+                    for device in (DEVICE, "cpu")]
+
+        for mode, x in (("ext", ext), ("prng", secrets)):
+            for n_chunks in (2, 3):
+                sec8 = m8.planar8_from_batched(eng.mxu8, x[: n_chunks * P], LANES)
+                rows = sec8.shape[0] // n_chunks
+                for rec in (None, spec.reconstruct_matrix):
+                    plan, plan_cpu = plans(rows, rec, n_chunks)
+                    seed = 500 + sum(cases.values())
+                    check("mxu8_chunked", m8.run_mxu8(plan, sec8, seed, lanes=LANES),
+                          m8.run_mxu8(plan_cpu, sec8.cpu(), seed, lanes=LANES),
+                          f"{name} {mode} n_chunks={n_chunks} rec={rec is not None}")
+            # B3 onto a non-zero canonical running sum
+            sec8 = m8.planar8_from_batched(eng.mxu8, x[: 2 * P], LANES)
+            rows = sec8.shape[0] // 2
+            plan, plan_cpu = plans(rows)
+            acc = m8.run_mxu8(plan, sec8[:rows], 7)
+            if not int(acc.count_nonzero()):
+                raise AssertionError("the accumulator of the B3 check is zero")
+            check("mxu8_acc", m8.run_mxu8(plan, sec8[rows:], 8, acc_in=acc.clone()),
+                  m8.run_mxu8(plan_cpu, sec8[rows:].cpu(), 8, acc_in=acc.cpu().clone()),
+                  f"{name} {mode}")
+            if mode == "prng":
+                # one chunked launch == the streaming loop at the same seed
+                sec8 = m8.planar8_from_batched(eng.mxu8, x, LANES)
+                rows = sec8.shape[0] // 3
+                plan3, _ = plans(rows, None, 3)
+                plan1, _ = plans(rows)
+                seed, grid_t = 900, sec8.shape[1] // LANES
+                chunked = m8.run_mxu8(plan3, sec8, seed, lanes=LANES)
+                acc = m8.run_mxu8(plan1, sec8[:rows], seed)
+                for c in (1, 2):
+                    m8.run_mxu8(plan1, sec8[c * rows : (c + 1) * rows], seed + c * grid_t,
+                                acc_in=acc)
+                check("mxu8_chunked", chunked, acc, f"{name} chunked != streaming loop")
+    return cases, max_err
+
+
 def _planar_secrets(rows: int, nbp: int, L8: int, seed: int):
     """The participation matrix synthesised on the card in the kernel's
     biased planar layout; the top byte of each element is masked to 4 bits
     so every element is canonical (< 2^(8*L8-4) < p)."""
     import torch
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    d = torch.empty((rows, nbp), dtype=torch.uint8, device="cuda").random_(generator=gen)
+    d = torch.empty((rows, nbp), dtype=torch.uint8, device=DEVICE).random_(generator=gen)
     d.view(rows // L8, L8, nbp)[:, L8 - 1] &= 0x0F
     d ^= 0x80
     return d.view(torch.int8)
 
 
-def _reveal_check(engine, sec8, out, p_count: int, width: int = 128):
+def _reveal_check(engine, sec8, out, p_count: int, width: int = 128, times: int = 1,
+                  what: str = "headline"):
     """The kernel's reveal on the first ``width`` batch positions against
-    the modular sum of the participants' secrets decoded from ``sec8``."""
+    ``times`` x the modular sum of the participants' secrets decoded from
+    ``sec8`` (``times`` > 1: the same chunk streamed that often)."""
     import torch
 
     k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
     d = sec8[:, :width].cpu().to(torch.int64) + 128  # unbiased bytes
     d = d.reshape(p_count, k, L8, width)
     x16 = torch.stack([d[:, :, 2 * w] + (d[:, :, 2 * w + 1] << 8) for w in range(L)], dim=-1)
-    ref = engine.ctx.sum_mod(x16.permute(0, 2, 1, 3), axis=0)  # [width, k, L]
+    once = engine.ctx.sum_mod(x16.permute(0, 2, 1, 3), axis=0)  # [width, k, L]
+    ref = once
+    for _ in range(times - 1):
+        ref = engine.ctx.add_mod(ref, once)
     if not torch.equal(out[:width].cpu().to(torch.int64), ref):
-        raise AssertionError("headline reveal != modular participant sum")
+        raise AssertionError(f"{what} reveal != modular participant sum")
 
 
 def phase_headline(iters: int = 20):
@@ -183,18 +338,19 @@ def phase_headline(iters: int = 20):
     torch.cuda.synchronize()
 
     # the main path: one aggregation step, counted
-    m8.mxu8_launches = 0
+    _reset_counts()
     out = engine.aggregate_mxu8_kernel(sec8, 0, p_count=HEADLINE_P, lanes=LANES)
     torch.cuda.synchronize()
-    launches = m8.mxu8_launches
+    counts = _counts()
+    launches = counts["mxu8_fused"]
     if launches < 1:
-        raise AssertionError("the headline step did not launch the mxu8 kernel")
+        raise AssertionError(f"the headline step did not launch the mxu8 kernel: {counts}")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"headline output has shape {tuple(out.shape)} or limbs out of range")
     _reveal_check(engine, sec8, out, HEADLINE_P)
 
     # the plain version at the same shape, on the card, against the kernel
-    plan = next(iter(engine._plans.values()))
+    plan = engine._plan("share", rows, HEADLINE_P, sec8.device)
     raw = m8.run_mxu8(plan, sec8, 0)
     t_plain = cuda_time(lambda i: m8._fused_share_combine_mxu8_plain(plan, sec8, 0), iters=1, warmup=0)
     plain = m8._fused_share_combine_mxu8_plain(plan, sec8, 0)
@@ -217,24 +373,229 @@ def phase_headline(iters: int = 20):
     plan_rp1 = m8.mxu8_plan(
         engine.mxu8, engine.spec.share_matrix, rows, HEADLINE_P, k,
         engine.spec.randomness_count, reconstruct_matrix=engine.spec.reconstruct_matrix,
-        rand_participants=1, device="cuda",
+        rand_participants=1, device=DEVICE,
     )
     t_rp1 = cuda_time(lambda i: m8.run_mxu8(plan_rp1, sec8, i), iters=iters, warmup=3)
-    in_bytes = (sec8.numel() + plan.bigs.numel() + plan.bigr.numel() + plan.big2.numel()
-                + 4 * plan.tables.numel())
-    out_bytes = 4 * raw.numel()
-    ops = 2.0 * plan.n_pad * (plan.rows + plan.Kr) * nbp
-    ops += 2.0 * plan.big2.shape[0] * plan.big2.shape[1] * nbp
-    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
-    ops_ms = ops / PEAK_INT8 * 1e3
+    cost = _launch_cost(plan, nbp)
+    bound_ms, bound_by = _bound([cost])
     philox_words = float(nbp) * plan.rp * plan.words_per_p
     return {
         "launches": launches, "timing": t, "plain_ms": t_plain.median_ms, "max_abs_err": err,
         "step_ms": step_ms, "rp1_ms": t_rp1.median_ms,
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": in_bytes + out_bytes, "int8_ops": ops, "philox_words": philox_words,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": cost[0], "int8_ops": cost[1], "philox_words": philox_words,
         "shape": f"P={HEADLINE_P} dim={HEADLINE_DIM} rows={rows} NBP={nbp}",
     }
+
+
+def _trace(fn):
+    """One call of ``fn`` under ``torch.profiler``: (device busy ms, host
+    wall ms, device activities). Busy is the union of the device-side
+    intervals (kernels, copies) in the trace, None when the trace holds no
+    device activity; wall is the host clock around the call and a sync."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, wall_ms, 0
+    busy_us, (lo, hi) = 0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy_us += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return (busy_us + hi - lo) / 1e3, wall_ms, len(spans)
+
+
+def phase_config3(iters: int = 20):
+    """128-bit, 2 chunks x 512 participants in ONE B2 launch."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    c = CONFIG3
+    engine = FederatedAggregation.packed_128bit(dimension=c["dimension"]).engine
+    k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
+    lanes, n_chunks, p_chunk = c["lanes"], c["n_chunks"], c["p_chunk"]
+    nbp = -(-engine.nb // lanes) * lanes
+    rows = p_chunk * k * L8
+    sec8 = torch.cat([_planar_secrets(rows, nbp, L8, seed=30 + i) for i in range(n_chunks)])
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    out = engine.aggregate_mxu8_kernel_chunked(sec8, n_chunks, p_chunk, seed=1, lanes=lanes)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != {"mxu8_fused": 0, "mxu8_chunked": 1, "mxu8_acc": 0}:
+        raise AssertionError(f"config 3 step launched {counts}, not one B2 launch")
+    if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
+        raise AssertionError(f"config 3 output has shape {tuple(out.shape)} or limbs out of range")
+    _reveal_check(engine, sec8, out, n_chunks * p_chunk, width=lanes, what="config 3")
+
+    plan = engine._plan("share", rows, p_chunk, sec8.device, n_chunks)
+    raw = m8.run_mxu8(plan, sec8, 1, lanes=lanes)
+    t_plain = cuda_time(
+        lambda i: m8._fused_share_combine_mxu8_plain(plan, sec8, 1, nbp // lanes), iters=1, warmup=0
+    )
+    plain = m8._fused_share_combine_mxu8_plain(plan, sec8, 1, nbp // lanes)
+    err = int((raw.to(torch.int64) - plain.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"config 3 kernel != plain version: max err {err}")
+    t = cuda_time(
+        lambda i: engine.aggregate_mxu8_kernel_chunked(sec8, n_chunks, p_chunk, seed=2 + i,
+                                                       lanes=lanes),
+        iters=iters, warmup=3,
+    )
+    bound_ms, bound_by = _bound([_launch_cost(plan, nbp)])
+    return {
+        "launches": counts["mxu8_chunked"], "timing": t, "plain_ms": t_plain.median_ms,
+        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": f"P={n_chunks}x{p_chunk} dim={c['dimension']} 128-bit rows={rows}/chunk "
+                 f"NBP={nbp} lanes={lanes}",
+    }
+
+
+def phase_config4(iters: int = 5):
+    """10,752 participants x 1,000,002 dimensions streamed in 14 chunks:
+    B1 for the first chunk, B3 for the other 13, B1 for the reconstruction."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    c = CONFIG4
+    engine = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM).engine
+    k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
+    p_chunk, n_chunks = c["p_chunk"], c["n_chunks"]
+    nbp = -(-engine.nb // LANES) * LANES
+    rows = p_chunk * k * L8
+    chunk = _planar_secrets(rows, nbp, L8, seed=40)  # resident, re-read per chunk
+    torch.cuda.synchronize()
+
+    def step(seed0):
+        return engine.aggregate_mxu8_kernel_streaming([lambda i: chunk] * n_chunks, p_chunk,
+                                                      seed0=seed0, lanes=LANES)
+
+    _reset_counts()
+    out = step(1)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != {"mxu8_fused": 2, "mxu8_chunked": 0, "mxu8_acc": n_chunks - 1}:
+        raise AssertionError(f"config 4 step launched {counts}, not B1 x 2 and B3 x 13")
+    if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
+        raise AssertionError(f"config 4 output has shape {tuple(out.shape)} or limbs out of range")
+    _reveal_check(engine, chunk, out, p_chunk, times=n_chunks, what="config 4")
+
+    # one B3 launch against its plain version on the card, onto a canonical
+    # running sum
+    plan = engine._plan("combine", rows, p_chunk, chunk.device)
+    acc0 = engine.mxu8_kernel_combined(chunk, 3, p_chunk, LANES)
+    got = m8.run_mxu8(plan, chunk, 4, acc_in=acc0.clone())
+    t_plain = cuda_time(
+        lambda i: m8._fused_share_combine_mxu8_plain(plan, chunk, 4, acc_in=acc0.clone()),
+        iters=1, warmup=0,
+    )
+    want = m8._fused_share_combine_mxu8_plain(plan, chunk, 4, acc_in=acc0.clone())
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"config 4 B3 kernel != plain version: max err {err}")
+
+    acc = acc0.clone()
+    t_acc = cuda_time(lambda i: m8.run_mxu8(plan, chunk, 10 + i, acc_in=acc), iters=10, warmup=2)
+    t_first = cuda_time(lambda i: engine.mxu8_kernel_combined(chunk, 30 + i, p_chunk, LANES),
+                        iters=5, warmup=1)
+    t_rec = cuda_time(lambda i: engine.reconstruct_planar8(acc0, LANES), iters=10, warmup=2)
+    t_step = cuda_time(lambda i: step(100 + i * n_chunks), iters=iters, warmup=1)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        step(1000 + i * n_chunks)
+    torch.cuda.synchronize()
+    host_step_ms = (time.perf_counter() - t0) / iters * 1e3
+    kernel_sum_ms = t_first.median_ms + (n_chunks - 1) * t_acc.median_ms + t_rec.median_ms
+    busy_ms, traced_wall_ms, activities = _trace(lambda: step(5000))
+
+    rec_plan = engine._plan("reconstruct", engine.spec.share_count * L8, 1, chunk.device)
+    acc_cost = _launch_cost(plan, nbp, acc=True)
+    step_costs = [_launch_cost(plan, nbp)] + [acc_cost] * (n_chunks - 1) + [_launch_cost(rec_plan, nbp)]
+    step_bound_ms, step_bound_by = _bound(step_costs)
+    bound_ms, bound_by = _bound([acc_cost])
+    return {
+        "launches": counts["mxu8_acc"], "fused_launches": counts["mxu8_fused"], "timing": t_acc,
+        "plain_ms": t_plain.median_ms, "max_abs_err": err,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "step": t_step, "host_step_ms": host_step_ms, "kernel_sum_ms": kernel_sum_ms,
+        "first_ms": t_first.median_ms, "rec_ms": t_rec.median_ms,
+        "idle_share": max(0.0, 1 - kernel_sum_ms / host_step_ms),
+        "traced_busy_ms": busy_ms, "traced_wall_ms": traced_wall_ms,
+        "traced_activities": activities,
+        "traced_idle_share": None if busy_ms is None else 1 - busy_ms / traced_wall_ms,
+        "step_bound_ms": step_bound_ms, "step_bound_by": step_bound_by,
+        "step_bytes": sum(b for b, _ in step_costs),
+        "shape": f"P={n_chunks}x{p_chunk} dim={HEADLINE_DIM} rows={rows}/chunk NBP={nbp}",
+    }
+
+
+def phase_serving(iters: int = 20):
+    """512 small jobs side by side on the lane axis, one B1 launch, in both
+    randomness modes."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    c = SERVING
+    engine = FederatedAggregation.packed_64bit(dimension=c["dimension"]).engine
+    k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
+    P, n_jobs, job_lanes = c["participants"], c["jobs"], c["job_lanes"]
+    rows = P * k * L8
+    jobs = list(_planar_secrets(rows, n_jobs * job_lanes, L8, seed=50).split(job_lanes, dim=1))
+    batched = engine.concat_jobs_lanes(jobs)
+    nbp = batched.shape[1]
+    torch.cuda.synchronize()
+    res = {}
+    for combined in (False, True):
+        _reset_counts()
+        outs = engine.aggregate_mxu8_kernel_jobs(batched, 0, P, n_jobs, lanes=LANES,
+                                                 combined_randomness=combined)
+        torch.cuda.synchronize()
+        counts = _counts()
+        if counts != {"mxu8_fused": 1, "mxu8_chunked": 0, "mxu8_acc": 0}:
+            raise AssertionError(f"serving (combined={combined}) launched {counts}, not one B1")
+        if tuple(outs.shape) != (n_jobs, engine.nb, k, L):
+            raise AssertionError(f"serving output has shape {tuple(outs.shape)}")
+        for j in (0, 1, n_jobs - 1):
+            _reveal_check(engine, jobs[j], outs[j], P, width=engine.nb, what=f"serving job {j}")
+        plan = engine._plan("share", rows, P, batched.device,
+                            rand_participants=1 if combined else None)
+        err = int((m8.run_mxu8(plan, batched, 5).to(torch.int64)
+                   - m8._fused_share_combine_mxu8_plain(plan, batched, 5).to(torch.int64))
+                  .abs().max())
+        if err:
+            raise AssertionError(f"serving kernel != plain version: max err {err}")
+        t = cuda_time(
+            lambda i: engine.aggregate_mxu8_kernel_jobs(batched, i, P, n_jobs, lanes=LANES,
+                                                        combined_randomness=combined),
+            iters=iters, warmup=3,
+        )
+        bound_ms, bound_by = _bound([_launch_cost(plan, nbp)])
+        res[combined] = {"launches": counts["mxu8_fused"], "timing": t, "max_abs_err": err,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+    res["shape"] = f"{n_jobs} jobs x P={P} dim={c['dimension']} NBP={nbp}"
+    return res
 
 
 def phase_forward(participants: int = 32):
@@ -277,12 +638,17 @@ def main() -> int:
 
     card = _card_line()
     name = torch.cuda.get_device_name(0)
-    build_s = phase_build()
-    print(f"build: {build_s:.1f} s (nvcc, sm_90a)", flush=True)
+    build_s, ptxas = phase_build()
+    print(f"build: {build_s:.1f} s (nvcc, sm_90a, {len(ptxas)} variants in parallel)", flush=True)
+    for variant, summary in ptxas.items():
+        print(f"build: ptxas registers {variant}: {summary}", flush=True)
 
     cases, cmp_err, mid = phase_compare()
     print(f"compare: {cases} kernel/plain cases bit-equal at the mid shape ({mid['shape']}): "
           f"kernel {mid['kernel_ms']:.4f} ms, plain (CPU) {mid['plain_cpu_ms']:.1f} ms", flush=True)
+    cases2, cmp_err2 = phase_compare_chunked()
+    print(f"compare: B2 {cases2['mxu8_chunked']} cases (2 and 3 chunks, with the streaming-loop "
+          f"check) and B3 {cases2['mxu8_acc']} cases bit-equal at the mid shape", flush=True)
 
     h = phase_headline()
     t = h["timing"]
@@ -295,31 +661,117 @@ def main() -> int:
           f"(device idle share {max(0.0, 1 - t.median_ms / h['step_ms']):.4f}); "
           f"with rand_participants=1 {h['rp1_ms']:.4f} ms", flush=True)
 
+    c3 = phase_config3()
+    t3 = c3["timing"]
+    total3 = CONFIG3["n_chunks"] * CONFIG3["p_chunk"]
+    print(f"config 3: {c3['shape']} on {card}: one B2 launch, median {t3.median_ms:.4f} ms "
+          f"(min {t3.min_ms:.4f}, max {t3.max_ms:.4f}, {len(t3.samples_ms)} steps), "
+          f"{total3 / (t3.median_ms / 1e3):.0f} aggregations/s; bound {c3['bound_ms']:.4f} ms "
+          f"({c3['bound_by']}); plain on card {c3['plain_ms']:.1f} ms; reveal exact", flush=True)
+
+    c4 = phase_config4()
+    s4 = c4["step"]
+    total4 = CONFIG4["n_chunks"] * CONFIG4["p_chunk"]
+    print(f"config 4: {c4['shape']} on {card}: B1 x {c4['fused_launches']} + B3 x "
+          f"{c4['launches']}, step median {s4.median_ms:.4f} ms (min {s4.min_ms:.4f}, "
+          f"max {s4.max_ms:.4f}, {len(s4.samples_ms)} steps, events), "
+          f"{total4 / (s4.median_ms / 1e3):.0f} aggregations/s; step bound "
+          f"{c4['step_bound_ms']:.4f} ms ({c4['step_bound_by']}, {c4['step_bytes'] / 1e9:.2f} GB); "
+          f"reveal exact", flush=True)
+    print(f"config 4: B3 launch median {c4['timing'].median_ms:.4f} ms (min "
+          f"{c4['timing'].min_ms:.4f}, max {c4['timing'].max_ms:.4f}), bound "
+          f"{c4['bound_ms']:.4f} ms ({c4['bound_by']}), plain on card {c4['plain_ms']:.1f} ms; "
+          f"first chunk (B1) {c4['first_ms']:.4f} ms, reconstruction {c4['rec_ms']:.4f} ms; "
+          f"back-to-back step {c4['host_step_ms']:.4f} ms on the host clock, kernels "
+          f"{c4['kernel_sum_ms']:.4f} ms, device idle share {c4['idle_share']:.4f}", flush=True)
+    if c4["traced_busy_ms"] is None:
+        print("config 4: torch.profiler trace of one step: no device activity recorded "
+              "(traced idle share not measured)", flush=True)
+    else:
+        print(f"config 4: torch.profiler trace of one step: device busy "
+              f"{c4['traced_busy_ms']:.4f} ms of {c4['traced_wall_ms']:.4f} ms on the host clock "
+              f"({c4['traced_activities']} device activities), device idle share "
+              f"{c4['traced_idle_share']:.4f}", flush=True)
+
+    sv = phase_serving()
+    for combined in (False, True):
+        r = sv[combined]
+        ts = r["timing"]
+        print(f"serving: {sv['shape']} combined_randomness={combined} on {card}: one launch, "
+              f"median {ts.median_ms:.4f} ms (min {ts.min_ms:.4f}, max {ts.max_ms:.4f}), "
+              f"{SERVING['jobs'] / (ts.median_ms / 1e3):.0f} jobs/s; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); jobs 0, 1, {SERVING['jobs'] - 1} revealed exactly", flush=True)
+
     fwd_s = phase_forward()
     print(f"forward: CIOS forward, 32 x {HEADLINE_DIM}, revealed exactly in {fwd_s:.3f} s", flush=True)
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "mxu8_fused",
-        "route": "cuda",
-        "source": "sda_tpu_torch/ops/csrc/mxu8.cu",
-        "replaces": "sda_tpu/ops/mxu8.py:454",
-        "launches": h["launches"],
-        "max_abs_err": max(cmp_err, h["max_abs_err"]),
-        "ms": t.median_ms,
-        "min_ms": t.min_ms,
-        "max_ms": t.max_ms,
-        "plain_ms": h["plain_ms"],
-        "bound_ms": h["bound_ms"],
-        "bound_by": h["bound_by"],
-        "library_ms": None,
-        "shape": h["shape"],
-        "step_ms": h["step_ms"],
-        "rand_participants_1_ms": h["rp1_ms"],
-        "mid_kernel_ms": mid["kernel_ms"],
-        "mid_plain_cpu_ms": mid["plain_cpu_ms"],
-        "mid_shape": mid["shape"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "mxu8_fused",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/mxu8.cu",
+            "replaces": "sda_tpu/ops/mxu8.py:454",
+            "launches": h["launches"],
+            "max_abs_err": max(cmp_err, h["max_abs_err"], sv[False]["max_abs_err"],
+                               sv[True]["max_abs_err"]),
+            "ms": t.median_ms,
+            "min_ms": t.min_ms,
+            "max_ms": t.max_ms,
+            "plain_ms": h["plain_ms"],
+            "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"],
+            "library_ms": None,
+            "shape": h["shape"],
+            "step_ms": h["step_ms"],
+            "rand_participants_1_ms": h["rp1_ms"],
+            "mid_kernel_ms": mid["kernel_ms"],
+            "mid_plain_cpu_ms": mid["plain_cpu_ms"],
+            "mid_shape": mid["shape"],
+            "launches_config4": c4["fused_launches"],
+            "launches_serving": [sv[False]["launches"], sv[True]["launches"]],
+            "serving_ms": [sv[False]["timing"].median_ms, sv[True]["timing"].median_ms],
+            "serving_bound_ms": sv[False]["bound_ms"],
+            "serving_shape": sv["shape"],
+        },
+        {
+            "name": "mxu8_chunked",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/mxu8.cu",
+            "replaces": "sda_tpu/ops/mxu8.py:496",
+            "launches": c3["launches"],
+            "max_abs_err": max(cmp_err2["mxu8_chunked"], c3["max_abs_err"]),
+            "ms": t3.median_ms,
+            "min_ms": t3.min_ms,
+            "max_ms": t3.max_ms,
+            "plain_ms": c3["plain_ms"],
+            "bound_ms": c3["bound_ms"],
+            "bound_by": c3["bound_by"],
+            "library_ms": None,
+            "shape": c3["shape"],
+        },
+        {
+            "name": "mxu8_acc",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/mxu8.cu",
+            "replaces": "sda_tpu/ops/mxu8.py:474",
+            "launches": c4["launches"],
+            "max_abs_err": max(cmp_err2["mxu8_acc"], c4["max_abs_err"]),
+            "ms": c4["timing"].median_ms,
+            "min_ms": c4["timing"].min_ms,
+            "max_ms": c4["timing"].max_ms,
+            "plain_ms": c4["plain_ms"],
+            "bound_ms": c4["bound_ms"],
+            "bound_by": c4["bound_by"],
+            "library_ms": None,
+            "shape": c4["shape"],
+            "config4_step_ms": s4.median_ms,
+            "config4_step_bound_ms": c4["step_bound_ms"],
+            "config4_host_step_ms": c4["host_step_ms"],
+            "config4_idle_share": c4["idle_share"],
+            "config4_traced_idle_share": c4["traced_idle_share"],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

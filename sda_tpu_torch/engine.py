@@ -11,10 +11,17 @@ drawn at the field math:
 
 Two routes compute it. The plain CIOS route (``share`` / ``combine`` /
 ``reconstruct`` / ``aggregate``) is limb-tensor code on any device. The
-byte-limb route (``aggregate_mxu8_kernel``) runs share generation with
-in-kernel randomness, the combine and the reconstruction in one launch of
-the hand-written CUDA kernel of :mod:`sda_tpu_torch.ops.mxu8` — on a CPU
-tensor, in that kernel's plain version.
+byte-limb route runs share generation with in-kernel randomness, the
+combine and the reconstruction in the hand-written CUDA kernels of
+:mod:`sda_tpu_torch.ops.mxu8` — on a CPU tensor, in their plain version:
+
+- ``aggregate_mxu8_kernel``: one participant chunk, one launch (B1);
+- ``aggregate_mxu8_kernel_chunked``: stacked chunks, one launch (B2);
+- ``aggregate_mxu8_kernel_streaming``: chunks from the host, one launch
+  each onto one running accumulator (B1, then B3), then
+  ``reconstruct_planar8`` (B1);
+- ``concat_jobs_lanes`` + ``aggregate_mxu8_kernel_jobs``: many same-shape
+  small jobs side by side on the lane axis, one launch (B1).
 
 The engine runs on ``cuda`` unless the caller passes another device.
 """
@@ -133,23 +140,39 @@ class TorchAggregationEngine:
         """Caller-randomness layout: ``[P, nb, k+r, L] -> planar``."""
         return planar8_from_batched(self._require_mxu8(), ext, lanes)
 
-    def _fused(self, sec8, seed, p_count: int, lanes: int, reconstruct: bool):
-        mxu8 = self._require_mxu8()
-        rows, nbp = sec8.shape
-        if nbp % lanes:
-            raise ValueError(f"NBP={nbp} must be a multiple of lanes={lanes}")
-        key = (rows, p_count, reconstruct, sec8.device)
+    def _plan(self, matrix: str, rows: int, p_count: int, device, n_chunks: int = 1,
+              rand_participants: int | None = None):
+        """The cached plan of one configuration. ``matrix`` is ``"share"``
+        (share + combine, with fused reconstruction), ``"combine"`` (share +
+        combine) or ``"reconstruct"`` (the reconstruction alone). The key
+        holds everything the plan is built from; B1 and B3 launches of one
+        shape share a plan, since B3 differs only at run time (acc_in)."""
+        key = (matrix, rows, p_count, n_chunks, rand_participants, device)
         plan = self._plans.get(key)
         if plan is None:
-            spec = self.spec
-            plan = mxu8_plan(
-                mxu8, spec.share_matrix, rows, p_count, spec.secret_count,
-                spec.randomness_count,
-                reconstruct_matrix=spec.reconstruct_matrix if reconstruct else None,
-                device=sec8.device,
-            )
+            mxu8, spec = self._require_mxu8(), self.spec
+            if matrix == "reconstruct":
+                # the same modular matmul: p_count=1, slots=n, no randomness
+                plan = mxu8_plan(mxu8, spec.reconstruct_matrix, rows, 1, spec.share_count, 0,
+                                 device=device)
+            else:
+                plan = mxu8_plan(
+                    mxu8, spec.share_matrix, rows, p_count, spec.secret_count,
+                    spec.randomness_count,
+                    reconstruct_matrix=spec.reconstruct_matrix if matrix == "share" else None,
+                    rand_participants=rand_participants, device=device, n_chunks=n_chunks,
+                )
             self._plans[key] = plan
-        return run_mxu8(plan, sec8, int(seed))
+        return plan
+
+    def _fused(self, sec8, seed, p_count: int, lanes: int, reconstruct: bool,
+               n_chunks: int = 1, acc_in=None, rand_participants: int | None = None):
+        rows = sec8.shape[0]
+        if rows % n_chunks:
+            raise ValueError("sec_planar rows must divide evenly into n_chunks")
+        plan = self._plan("share" if reconstruct else "combine", rows // n_chunks, p_count,
+                          sec8.device, n_chunks, rand_participants)
+        return run_mxu8(plan, sec8, int(seed), lanes=lanes, acc_in=acc_in)
 
     def aggregate_mxu8_kernel(self, sec8, seed, p_count: int, lanes: int = 1024):
         """Share + combine + reconstruct in ONE launch of the byte-limb
@@ -162,6 +185,90 @@ class TorchAggregationEngine:
         """The same launch without reconstruction: per-clerk combined
         shares, ``[L * n, NBP]`` limb-major."""
         return self._fused(sec8, seed, p_count, lanes, reconstruct=False)
+
+    def reconstruct_planar8(self, comb, lanes: int = 1024):
+        """``[L * n, NBP]`` canonical combined shares -> ``[nb, k, L]``
+        through one B1 launch: the reconstruction is the same modular
+        matmul with one "participant", the n clerks as slots and no
+        randomness."""
+        mxu8 = self._require_mxu8()
+        n = self.spec.share_count
+        comb = comb.to(torch.int64)
+        # biased bytes, slot-major rows (clerk i, byte j): [n, L8, NBP]
+        c8 = torch.stack(
+            [((comb[(j // 2) * n : (j // 2 + 1) * n] >> (8 * (j % 2))) & 0xFF) - 128
+             for j in range(mxu8.L8)],
+            dim=1,
+        ).to(torch.int8).reshape(n * mxu8.L8, -1)
+        plan = self._plan("reconstruct", c8.shape[0], 1, c8.device)
+        out = run_mxu8(plan, c8, 0, lanes=lanes)
+        return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
+
+    def aggregate_mxu8_kernel_streaming(self, chunks, p_chunk: int, seed0: int = 0,
+                                        lanes: int = 1024):
+        """Past one launch's participant bound, with chunks from the host:
+        ``chunks`` yields ``[p_chunk*k*L8, NBP]`` planar tensors (or
+        callables ``f(i)``). The first chunk's canonical per-clerk sums come
+        from B1, every later chunk adds onto the same buffer in place (B3),
+        and :meth:`reconstruct_planar8` reveals. Chunk ``i`` draws with seed
+        ``seed0 + (NBP // lanes) * i``, as the reference's loop does."""
+        acc = None
+        grid_size = None
+        for i, chunk in enumerate(chunks):
+            sec8 = chunk(i) if callable(chunk) else chunk
+            if grid_size is None:
+                grid_size = sec8.shape[-1] // lanes
+            seed_i = seed0 + grid_size * i
+            acc = self._fused(sec8, seed_i, p_chunk, lanes, reconstruct=False, acc_in=acc)
+        if acc is None:
+            raise ValueError("aggregate_mxu8_kernel_streaming requires at least one chunk")
+        return self.reconstruct_planar8(acc, lanes)
+
+    def aggregate_mxu8_kernel_chunked(self, sec8_stacked, n_chunks: int, p_chunk: int,
+                                      seed: int = 0, lanes: int = 1024):
+        """A whole multi-chunk job in ONE launch (B2) with fused
+        reconstruction: ``sec8_stacked`` stacks ``n_chunks`` planar chunks of
+        ``p_chunk`` participants along its rows. Returns ``[nb, k, L]``."""
+        out = self._fused(sec8_stacked, seed, p_chunk, lanes, reconstruct=True,
+                          n_chunks=n_chunks)
+        return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
+
+    # ------------------------------------------------- lane-batch serving
+
+    @staticmethod
+    def concat_jobs_lanes(planar_jobs):
+        """Concatenate same-shape planar jobs along the lane (batch) axis.
+        Lanes are independent, so each job's result stays exact when many
+        same-scheme jobs share one launch. Shapes must be identical (same
+        participant count, slot layout and lane padding): otherwise the
+        even per-job split would cut across job boundaries."""
+        planar_jobs = list(planar_jobs)
+        if not planar_jobs:
+            raise ValueError("concat_jobs_lanes needs at least one job")
+        shape = planar_jobs[0].shape
+        if any(j.shape != shape for j in planar_jobs):
+            raise ValueError("lane-batched jobs must share the planar shape")
+        return torch.cat(planar_jobs, dim=1)
+
+    def aggregate_mxu8_kernel_jobs(self, sec8_batched, seed, p_count: int, n_jobs: int,
+                                   lanes: int = 1024, combined_randomness: bool = False):
+        """``n_jobs`` lane-concatenated jobs (from :meth:`concat_jobs_lanes`)
+        through ONE launch; returns ``[n_jobs, nb, k, L]``, row ``i`` job
+        ``i``.
+
+        ``combined_randomness``: one equivalent randomness draw per slot
+        instead of ``p_count`` (``rand_participants=1``). A sum of uniform
+        draws mod p is uniform, and only the combined result leaves the
+        kernel, so this is sound within the fused combine's trust model;
+        never use it where per-participant shares are emitted."""
+        nbp_total = sec8_batched.shape[1]
+        if nbp_total % n_jobs:
+            raise ValueError("batched lane width must divide evenly into jobs")
+        out = self._fused(sec8_batched, seed, p_count, lanes, reconstruct=True,
+                          rand_participants=1 if combined_randomness else None)
+        k, L = self.spec.secret_count, self.ctx.L
+        full = out.reshape(L, k, nbp_total).permute(2, 1, 0)
+        return full.reshape(n_jobs, nbp_total // n_jobs, k, L)[:, : self.nb]
 
     # ------------------------------------------------------ host edges
 

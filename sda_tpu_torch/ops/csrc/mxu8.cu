@@ -1,8 +1,26 @@
-// Fused byte-limb share + combine (+ reconstruct) for Hopper (sm_90a).
+// Fused byte-limb share + combine (+ reconstruct) for Hopper (sm_90a), in
+// three variants of one kernel body, chosen at build time by SDA_MXU8_MODE
+// (one shared library per variant, see ops/cuda_build.py):
 //
-// Replaces the TPU kernel sda_tpu/ops/mxu8.py::_mxu8_kernel (launched by
-// fused_share_combine_mxu8). It computes what that kernel computes, per
-// lane (batch position) b:
+//   0  B1, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel: one participant chunk,
+//      the canonical result written to out.
+//   1  B3, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_acc (host-driven
+//      streaming): B1, then the canonical result is added mod p onto out,
+//      which holds the running sums on entry (the caller's acc_in: the same
+//      buffer is input and output). Each thread reads its own limbs of out
+//      before it stores their sum to the same addresses, so the in-place
+//      update needs no synchronisation.
+//   2  B2, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_chunked: n_chunks
+//      stacked participant chunks reduced in ONE launch. The TPU walked the
+//      chunks as a sequential grid axis with a VMEM accumulator; here each
+//      block loops over the chunks itself, runs B1's whole pipeline on rows
+//      [c * K, (c + 1) * K) (offsets in size_t: c * K * nbp passes 2^31),
+//      adds the canonical limbs mod p into a shared-memory accumulator
+//      (L * n_out * 128 lanes * 4 B, 32 KB at 128-bit without
+//      reconstruction) and writes out once, after the last chunk.
+//      Chunk c draws its randomness with key seed + c * seed_stride.
+//
+// Every variant computes, per lane (batch position) b and chunk:
 //
 //   acc[:, b]  = bigS^T . sec[:, b]                  biased int8 x int8 -> int32
 //              + bigR^T . rand2[:, b]                in-kernel randomness (PRNG mode)
@@ -13,7 +31,8 @@
 //
 // Design (first, simple, correct cut):
 //   * One block of 256 threads (8 warps) per tile of kT = 128 lanes; blocks
-//     are independent (the TPU grid carried nothing across steps either).
+//     are independent (the TPU grid carried nothing across lane blocks
+//     either; B2's chunk reduction stays inside the block).
 //   * Stage-1 contraction on the int8 tensor cores with
 //     mma.sync.m16n8k32.s32.s8.s8.s32. Each warp owns 16 lanes (two n8
 //     tiles) and all MT m16 tiles of output rows. K streams in tiles of 64
@@ -33,14 +52,18 @@
 //     lane run the carry chains, the optional stage-2 contraction (88 x 25 at
 //     the headline, scalar), the fold, and the limb-major output writes.
 //
-// Bound on the H100 SXM at the headline (768 participants, 1,000,002 dims,
-// p = 2^63 - 871): sec is 18,432 x 333,824 int8 = 6.15 GB read once, about
-// 1.84 ms at 3.35 TB/s; the contractions are 1.19e12 int8 operations, about
-// 0.6 ms at 1,979 TOPS; the randomness is 2.05e9 Philox words on the CUDA
-// cores, which is likely the binding stream on this card. This design does
-// nothing yet about that bound: no cp.async/TMA pipelining of the sec
-// stream, no wgmma, and a full ten-round Philox per four words. Those are
-// later work.
+// Bounds on the H100 SXM. B1 at the headline (768 participants, 1,000,002
+// dims, p = 2^63 - 871): sec is 18,432 x 333,824 int8 = 6.15 GB read once,
+// about 1.84 ms at 3.35 TB/s; the contractions are 1.19e12 int8 operations,
+// about 0.6 ms at 1,979 TOPS; the randomness is 2.05e9 Philox words on the
+// CUDA cores. B3 adds a read and a write of the running sums (43 MB at that
+// shape) to B1's bytes. B2 reads every chunk once; at the 128-bit config-3
+// shape (2 x 512 participants, NBP 3,584) sec is 0.176 GB, so its bound is
+// about 0.05 ms, but 3,584 lanes make only 28 blocks for 132 SMs, so the
+// kernel is bound by too few blocks long before bytes. This design does
+// nothing yet about these bounds: no cp.async/TMA pipelining of the sec
+// stream, no wgmma, no split of K across blocks for narrow jobs, and a full
+// ten-round Philox per four words. Those are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,7 +78,16 @@ constexpr int kMaxL = 8;       // 16-bit limbs per element (128-bit moduli)
 constexpr int kMaxB = 32;      // bytes per chain (L8 + residual limbs)
 constexpr int kMaxW = 16;      // 16-bit lanes regrouped from a chain
 constexpr int kMaxMT = 12;     // m16 tiles of output rows (n * L8 + 1 <= 192)
-constexpr int kNParams = 27;
+constexpr int kNParams = 29;
+
+constexpr int kPlain = 0;    // B1
+constexpr int kAcc = 1;      // B3
+constexpr int kChunked = 2;  // B2
+#ifndef SDA_MXU8_MODE
+#define SDA_MXU8_MODE 0
+#endif
+constexpr int kMode = SDA_MXU8_MODE;
+static_assert(kMode == kPlain || kMode == kAcc || kMode == kChunked, "SDA_MXU8_MODE is 0, 1 or 2");
 
 struct Params {
   int K;         // sec rows (participants x slots x L8)
@@ -85,6 +117,8 @@ struct Params {
   int off_consts;
   int off_p;
   int n_consts;
+  int n_chunks;          // stacked chunks of K rows (B2; 1 otherwise)
+  uint32_t seed_stride;  // chunk c draws with key seed + c * seed_stride (B2)
 };
 
 // ----------------------------------------------------------------- Philox
@@ -232,6 +266,43 @@ __device__ void fold_and_store(const uint32_t* bytes, int nb, const Params& p,
     out[(size_t)(l * n_out + i) * p.nbp + lane] = (int32_t)res[l];
 }
 
+// B2 and B3's form of fold_and_store for lane ll of the block (global lane
+// gl); B1 calls fold_and_store itself, so its code is what it was before
+// the variants existed. B3 adds the canonical limbs mod p onto the limbs
+// out holds; B2 adds them mod p into the shared-memory accumulator
+// sCanon ([L][n_out][kT]) and stores the sum only for the last chunk. Each
+// (i, ll) belongs to one thread for the whole launch, so neither the
+// accumulator nor out needs a barrier between its read and its write.
+template <int MODE>
+__device__ void fold_and_emit(const uint32_t* bytes, int nb, const Params& p,
+                              const uint32_t* tables, int32_t* out, uint32_t* sCanon, int n_out,
+                              int i, int ll, int gl, bool first, bool last) {
+  uint32_t res[kMaxL];
+  const uint32_t* pl = tables + p.off_p;
+  if (p.use_special)
+    fold_special(bytes, nb, p, pl, res);
+  else
+    fold_mont(bytes, nb, p, pl, tables + p.off_consts, res);
+  if constexpr (MODE == kChunked) {
+    if (!first) {
+      uint32_t prev[kMaxL];
+      for (int l = 0; l < p.L; ++l) prev[l] = sCanon[(l * n_out + i) * kT + ll];
+      add_mod(res, prev, pl, p.L);
+    }
+    if (!last) {
+      for (int l = 0; l < p.L; ++l) sCanon[(l * n_out + i) * kT + ll] = res[l];
+      return;
+    }
+  }
+  if constexpr (MODE == kAcc) {
+    uint32_t prev[kMaxL];
+    for (int l = 0; l < p.L; ++l) prev[l] = (uint32_t)out[(size_t)(l * n_out + i) * p.nbp + gl];
+    add_mod(res, prev, pl, p.L);
+  }
+  for (int l = 0; l < p.L; ++l)
+    out[(size_t)(l * n_out + i) * p.nbp + gl] = (int32_t)res[l];
+}
+
 // --------------------------------------------------------------- staging
 
 // A tile: rows [0, rows) x columns [col0, col0 + kKT) of a row-major int8
@@ -320,7 +391,7 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[MT][2][4], const int8_t* sA
 
 // ------------------------------------------------------------------ kernel
 
-template <int MT>
+template <int MT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
                   const int8_t* __restrict__ bigr, const int8_t* __restrict__ big2,
@@ -335,129 +406,150 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lane0 = blockIdx.x * kT;
   const int rows_used = p.n * p.L8 + 1;
+  const int n_out = p.n2 ? p.n2 : p.n;
+  // B2's canonical accumulator, past the spill area
+  uint32_t* sCanon = reinterpret_cast<uint32_t*>(sAcc + rows_used * kT);
+  const int nch = MODE == kChunked ? p.n_chunks : 1;
 
-  int acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int8_t* sec_c = MODE == kChunked ? sec + (size_t)ch * p.K * p.nbp : sec;
+    const uint32_t seed_c = MODE == kChunked ? p.seed + (uint32_t)ch * p.seed_stride : p.seed;
+    const bool first = ch == 0, last = ch == nch - 1;
 
-  // stage 1: bigS^T . sec
-  for (int k0 = 0; k0 < p.K; k0 += kKT) {
-    __syncthreads();
-    load_a_tile(sA, bigs, p.K, p.n_pad, MT * 16, k0, tid);
-    load_b_tile(sB, sb, sec, p.K, p.nbp, k0, lane0, tid);
-    __syncthreads();
-    const int ksteps = (min(kKT, p.K - k0) + 31) / 32;
-    mma_chunk<MT>(acc, sA, sB, sb, 0, ksteps, warp, lane);
-  }
-
-  // in-kernel randomness: u16-field sums over rp draws -> biased bytes
-  if (p.Kr > 0) {
-    __syncthreads();
-    const int groups = (p.wpp + 3) / 4;
-    for (int idx = tid; idx < kT * groups; idx += kThreads) {
-      const int ll = idx % kT, g = idx / kT, gl = lane0 + ll;
-      uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
-      if (gl < p.nbp) {
-        for (int j = 0; j < p.rp; ++j) {
-          uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
-          philox4x32_10(c, p.seed, 0u);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            accR[q] += c[q];
-            accO[q] += c[q] >> 16;
-          }
-        }
-      }
-      int8_t* row = sB + ll * sb;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int w = 4 * g + q;
-        if (w >= p.wpp) continue;
-        // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
-        const uint32_t accE = accR[q] - (accO[q] << 16);
-        for (int cb = 0; cb < p.n_bytes; ++cb) {
-          row[(2 * cb) * p.wpp + w] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
-          row[(2 * cb + 1) * p.wpp + w] = (int8_t)(byte_of(accO[q], cb) ^ 0x80u);
-        }
-      }
-    }
-    for (int kc = 0; kc < p.Kr_pad; kc += kKT) {
-      __syncthreads();
-      load_a_tile(sA, bigr, p.Kr_pad, p.n_pad, MT * 16, kc, tid);
-      __syncthreads();
-      mma_chunk<MT>(acc, sA, sB, sb, kc, min(kKT, p.Kr_pad - kc) / 32, warp, lane);
-    }
-  }
-
-  // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8
-  {
-    const int g = lane >> 2, t = lane & 3;
+    int acc[MT][2][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
-        if (r < rows_used) {
-          sAcc[r * kT + col] = acc[mt][nt][0];
-          sAcc[r * kT + col + 1] = acc[mt][nt][1];
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+
+    // stage 1: bigS^T . sec (the barrier at the top of each tile also
+    // orders the previous chunk's epilogue before this chunk's staging)
+    for (int k0 = 0; k0 < p.K; k0 += kKT) {
+      __syncthreads();
+      load_a_tile(sA, bigs, p.K, p.n_pad, MT * 16, k0, tid);
+      load_b_tile(sB, sb, sec_c, p.K, p.nbp, k0, lane0, tid);
+      __syncthreads();
+      const int ksteps = (min(kKT, p.K - k0) + 31) / 32;
+      mma_chunk<MT>(acc, sA, sB, sb, 0, ksteps, warp, lane);
+    }
+
+    // in-kernel randomness: u16-field sums over rp draws -> biased bytes
+    if (p.Kr > 0) {
+      __syncthreads();
+      const int groups = (p.wpp + 3) / 4;
+      for (int idx = tid; idx < kT * groups; idx += kThreads) {
+        const int ll = idx % kT, g = idx / kT, gl = lane0 + ll;
+        uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
+        if (gl < p.nbp) {
+          for (int j = 0; j < p.rp; ++j) {
+            uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
+            philox4x32_10(c, seed_c, 0u);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              accR[q] += c[q];
+              accO[q] += c[q] >> 16;
+            }
+          }
         }
-        if (r + 8 < rows_used) {
-          sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
-          sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
+        int8_t* row = sB + ll * sb;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int w = 4 * g + q;
+          if (w >= p.wpp) continue;
+          // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
+          const uint32_t accE = accR[q] - (accO[q] << 16);
+          for (int cb = 0; cb < p.n_bytes; ++cb) {
+            row[(2 * cb) * p.wpp + w] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
+            row[(2 * cb + 1) * p.wpp + w] = (int8_t)(byte_of(accO[q], cb) ^ 0x80u);
+          }
         }
       }
-  }
-  __syncthreads();
+      for (int kc = 0; kc < p.Kr_pad; kc += kKT) {
+        __syncthreads();
+        load_a_tile(sA, bigr, p.Kr_pad, p.n_pad, MT * 16, kc, tid);
+        __syncthreads();
+        mma_chunk<MT>(acc, sA, sB, sb, kc, min(kKT, p.Kr_pad - kc) / 32, warp, lane);
+      }
+    }
 
-  // epilogue: two threads per lane
-  const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
-  const int L8 = p.L8;
-  const uint32_t* c1 = tables + p.off_c1;
-  uint32_t bytes[kMaxB];
-  const uint32_t s128 = (uint32_t)sAcc[(p.n * L8) * kT + ll] * 128u;
-  for (int i = half; i < p.n; i += kThreads / kT) {
-    uint32_t carry = 0;
-    for (int c = 0; c < L8; ++c) {
-      const uint32_t t = (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[i * L8 + c] + s128 + carry;
-      bytes[c] = t & 0xFFu;
-      carry = t >> 8;
+    // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8
+    {
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
+          if (r < rows_used) {
+            sAcc[r * kT + col] = acc[mt][nt][0];
+            sAcc[r * kT + col + 1] = acc[mt][nt][1];
+          }
+          if (r + 8 < rows_used) {
+            sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
+            sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
+          }
+        }
     }
-    for (int r = 0; r < p.n_res1; ++r) {
-      bytes[L8 + r] = carry & 0xFFu;
-      carry >>= 8;
-    }
-    if (p.n2) {
-      for (int l1 = 0; l1 < L8 + p.n_res1; ++l1) sB1[(l1 * p.n + i) * kT + ll] = (uint8_t)bytes[l1];
-    } else if (gl < p.nbp) {
-      fold_and_store(bytes, L8 + p.n_res1, p, tables, out, p.n, i, gl);
-    }
-  }
-  if (p.n2) {
     __syncthreads();
-    const uint32_t* c2 = tables + p.off_c2;
-    const int8_t* ones_row = big2 + (size_t)(p.n2 * L8) * p.rows2;
-    int ones = 0;
-    for (int q = 0; q < p.rows2; ++q) ones += ones_row[q] * ((int)sB1[q * kT + ll] - 128);
-    const uint32_t s128_2 = (uint32_t)ones * 128u;
-    for (int i2 = half; i2 < p.n2; i2 += kThreads / kT) {
+
+    // epilogue: two threads per lane
+    const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
+    const int L8 = p.L8;
+    const uint32_t* c1 = tables + p.off_c1;
+    uint32_t bytes[kMaxB];
+    const uint32_t s128 = (uint32_t)sAcc[(p.n * L8) * kT + ll] * 128u;
+    for (int i = half; i < p.n; i += kThreads / kT) {
       uint32_t carry = 0;
       for (int c = 0; c < L8; ++c) {
-        const int8_t* row = big2 + (size_t)(i2 * L8 + c) * p.rows2;
-        int a = 0;
-        for (int q = 0; q < p.rows2; ++q) a += row[q] * ((int)sB1[q * kT + ll] - 128);
-        const uint32_t t = (uint32_t)a + c2[i2 * L8 + c] + s128_2 + carry;
+        const uint32_t t = (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[i * L8 + c] + s128 + carry;
         bytes[c] = t & 0xFFu;
         carry = t >> 8;
       }
-      for (int r = 0; r < p.n_res2; ++r) {
+      for (int r = 0; r < p.n_res1; ++r) {
         bytes[L8 + r] = carry & 0xFFu;
         carry >>= 8;
       }
-      if (gl < p.nbp) fold_and_store(bytes, L8 + p.n_res2, p, tables, out, p.n2, i2, gl);
+      if (p.n2) {
+        for (int l1 = 0; l1 < L8 + p.n_res1; ++l1) sB1[(l1 * p.n + i) * kT + ll] = (uint8_t)bytes[l1];
+      } else if (gl < p.nbp) {
+        if constexpr (MODE == kPlain)
+          fold_and_store(bytes, L8 + p.n_res1, p, tables, out, p.n, i, gl);
+        else
+          fold_and_emit<MODE>(bytes, L8 + p.n_res1, p, tables, out, sCanon, n_out, i, ll, gl,
+                              first, last);
+      }
+    }
+    if (p.n2) {
+      __syncthreads();
+      const uint32_t* c2 = tables + p.off_c2;
+      const int8_t* ones_row = big2 + (size_t)(p.n2 * L8) * p.rows2;
+      int ones = 0;
+      for (int q = 0; q < p.rows2; ++q) ones += ones_row[q] * ((int)sB1[q * kT + ll] - 128);
+      const uint32_t s128_2 = (uint32_t)ones * 128u;
+      for (int i2 = half; i2 < p.n2; i2 += kThreads / kT) {
+        uint32_t carry = 0;
+        for (int c = 0; c < L8; ++c) {
+          const int8_t* row = big2 + (size_t)(i2 * L8 + c) * p.rows2;
+          int a = 0;
+          for (int q = 0; q < p.rows2; ++q) a += row[q] * ((int)sB1[q * kT + ll] - 128);
+          const uint32_t t = (uint32_t)a + c2[i2 * L8 + c] + s128_2 + carry;
+          bytes[c] = t & 0xFFu;
+          carry = t >> 8;
+        }
+        for (int r = 0; r < p.n_res2; ++r) {
+          bytes[L8 + r] = carry & 0xFFu;
+          carry >>= 8;
+        }
+        if (gl < p.nbp) {
+          if constexpr (MODE == kPlain)
+            fold_and_store(bytes, L8 + p.n_res2, p, tables, out, p.n2, i2, gl);
+          else
+            fold_and_emit<MODE>(bytes, L8 + p.n_res2, p, tables, out, sCanon, n_out, i2, ll, gl,
+                                first, last);
+        }
+      }
     }
   }
 }
@@ -470,20 +562,23 @@ int launch(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, const int8
   const int b1_bytes = p.n2 ? p.rows2 * kT : 0;
   if (b1_bytes > stage_bytes) stage_bytes = b1_bytes;
   stage_bytes = (stage_bytes + 15) & ~15;
-  const size_t smem = (size_t)stage_bytes + (size_t)(p.n * p.L8 + 1) * kT * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(mxu8_fused_kernel<MT>,
+  size_t smem = (size_t)stage_bytes + (size_t)(p.n * p.L8 + 1) * kT * sizeof(int32_t);
+  if (kMode == kChunked) smem += (size_t)p.L * (p.n2 ? p.n2 : p.n) * kT * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(mxu8_fused_kernel<MT, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.nbp + kT - 1) / kT);
-  mxu8_fused_kernel<MT><<<grid, kThreads, smem, stream>>>(sec, bigs, bigr, big2, tables, out, p,
-                                                          sb, stage_bytes);
+  mxu8_fused_kernel<MT, kMode><<<grid, kThreads, smem, stream>>>(sec, bigs, bigr, big2, tables,
+                                                                 out, p, sb, stage_bytes);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point. iparams holds the kNParams ints of Params in field order
-// (seed as its 32-bit pattern). Returns a cudaError_t (0 on success).
+// C entry point of the variant this library was built as (SDA_MXU8_MODE).
+// iparams holds the kNParams ints of Params in field order (seed and
+// seed_stride as their 32-bit patterns). For B3, out holds the running sums
+// on entry. Returns a cudaError_t (0 on success).
 extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* bigr,
                               const void* big2, const void* tables, void* out,
                               const void* iparams, int n_iparams, void* stream) {
@@ -517,6 +612,9 @@ extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* big
   p.off_consts = v[24];
   p.off_p = v[25];
   p.n_consts = v[26];
+  p.n_chunks = v[27];
+  p.seed_stride = (uint32_t)v[28];
+  if (p.n_chunks < 1 || (kMode != kChunked && p.n_chunks != 1)) return (int)cudaErrorInvalidValue;
   if (p.L > kMaxL || p.L8 + (p.n_res1 > p.n_res2 ? p.n_res1 : p.n_res2) > kMaxB ||
       (p.K & 3) || (p.Kr_pad & 31))
     return (int)cudaErrorInvalidValue;

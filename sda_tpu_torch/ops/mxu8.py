@@ -35,6 +35,27 @@ PRNG word ``w`` of a (lane, draw) is output word ``w % 4`` of group
 not depend on how lanes are tiled. The CUDA kernel and the plain version
 below use this same mapping, so they agree bit for bit in PRNG mode too.
 
+**Past one launch's participants.** The uint32 carry chain bounds the
+operand rows one pipeline pass can sum (65,793, see :func:`mxu8_plan`).
+Two variants of the kernel go past it, as the reference's do:
+
+- ``n_chunks > 1`` (B2): ``sec_planar`` stacks ``n_chunks`` chunks of
+  ``p_count`` participants along its rows; each chunk runs the whole
+  single-chunk pipeline, their canonical results are added mod p, and the
+  sum is written once, by ONE launch.
+- ``acc_in`` (B3): this launch's canonical result is added mod p onto
+  ``acc_in`` in place, and ``acc_in`` itself is returned. This is the
+  port's form of the reference's ``input_output_aliases`` and its donated
+  accumulator: the host-driven streaming loop keeps one running buffer.
+
+**Randomness per chunk.** Chunk ``c`` of a chunked call with seed ``s``
+draws with key ``((s + c * grid_t) mod 2^32, 0)``, ``grid_t = NBP //
+lanes``: the seed the reference's streaming loop passes for chunk ``c``
+(``seed0 + grid_size * c``) and the offset its chunked body adds. So chunk
+0 draws B1's stream, and a chunked call with seed ``s`` and the streaming
+loop with ``seed0 = s`` draw the same randomness chunk for chunk: their
+combined outputs (no reconstruction) are bit-equal in PRNG mode.
+
 **Integer representation.** The plain version carries every u32 lane in
 int64 and masks with ``& 0xFFFFFFFF`` wherever the reference relies on
 uint32 wrap: the carry chains (``_true_chain``), the three-op randomness
@@ -61,6 +82,7 @@ __all__ = [
     "batched_from_planar_lm",
     "limbs8_host",
     "philox4x32_10",
+    "KERNEL_VARIANTS",
 ]
 
 _W8 = 8
@@ -72,8 +94,18 @@ _BIAS = 128
 # the uint32 carry chain's bound on summed rows (see fused_share_combine_mxu8)
 _MAX_RAND_PARTICIPANTS = 65793
 
-# Launches of the CUDA kernel (one per call on a CUDA tensor).
+# Launches of each variant of the CUDA kernel (one per call on a CUDA
+# tensor): B1 single chunk, B2 chunked, B3 accumulate.
 mxu8_launches = 0
+mxu8_chunked_launches = 0
+mxu8_acc_launches = 0
+
+# Each variant is its own build of csrc/mxu8.cu: name -> (source, defines).
+KERNEL_VARIANTS = {
+    "mxu8_fused": ("mxu8.cu", ("SDA_MXU8_MODE=0",)),
+    "mxu8_acc": ("mxu8.cu", ("SDA_MXU8_MODE=1",)),
+    "mxu8_chunked": ("mxu8.cu", ("SDA_MXU8_MODE=2",)),
+}
 
 
 def limbs8_host(values, L8: int) -> np.ndarray:
@@ -370,7 +402,8 @@ class Mxu8Plan:
     mxu8: Mxu8Context
     n: int  # clerks (stage-1 outputs)
     n_out: int  # n, or k2 with fused reconstruction
-    rows: int  # operand rows
+    rows: int  # operand rows of one chunk
+    n_chunks: int  # chunks stacked along the operand's rows
     n_pad: int
     rp: int  # randomness draws summed per slot (0: caller randomness)
     words_per_p: int
@@ -400,9 +433,13 @@ def mxu8_plan(
     pg: int | None = None,
     rand_participants: int | None = None,
     device="cpu",
+    n_chunks: int = 1,
 ) -> Mxu8Plan:
     """Build the matrices and constants of one fused configuration
-    (``rows`` operand rows) on ``device``; the guards are the reference's."""
+    (``n_chunks`` chunks of ``rows`` operand rows each) on ``device``; the
+    guards are the reference's, the carry-chain bound is per chunk."""
+    if n_chunks < 1:
+        raise ValueError("n_chunks must be >= 1")
     m = k + rand_count
     share_matrix = np.asarray(share_matrix, dtype=object)
     n = share_matrix.shape[1]
@@ -487,7 +524,7 @@ def mxu8_plan(
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return Mxu8Plan(
-        mxu8=mxu8, n=n, n_out=n2 if n2 else n, rows=rows, n_pad=n_pad,
+        mxu8=mxu8, n=n, n_out=n2 if n2 else n, rows=rows, n_chunks=n_chunks, n_pad=n_pad,
         rp=rp, words_per_p=words_per_p, n_bytes=n_bytes, n_res1=n_res1,
         n2=n2, n_res2=n_res2, use_special=use_special,
         bigs=dev(bigs), bigr=dev(bigr), Kr=Kr, big2=dev(big2),
@@ -613,11 +650,10 @@ def _plain_block(plan: Mxu8Plan, sec: torch.Tensor, seed: int, lane0: int) -> to
     return torch.cat(_fold8(plan, limbs), dim=0).to(torch.int32)
 
 
-def _fused_share_combine_mxu8_plain(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.Tensor:
-    """The fused function in plain int64 tensor code (any device): the
-    CUDA kernel's arithmetic, step for step, with the same Philox mapping.
-    Lanes are independent, so they run in blocks that bound the float64
-    operand and the Philox intermediates to about 2^27 elements each."""
+def _plain_chunk(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.Tensor:
+    """One chunk's pipeline. Lanes are independent, so they run in blocks
+    that bound the float64 operand and the Philox intermediates to about
+    2^27 elements each."""
     nbp = sec.shape[1]
     groups = -(-plan.words_per_p // 4) if plan.rp else 0
     block = max(1, min(nbp, (1 << 27) // max(plan.rows, 4 * plan.rp * groups, 1)))
@@ -628,12 +664,46 @@ def _fused_share_combine_mxu8_plain(plan: Mxu8Plan, sec: torch.Tensor, seed: int
     return out
 
 
+def _add_mod_lm(plan: Mxu8Plan, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(a + b) mod p`` of two limb-major ``[L * n_out, NBP]`` outputs."""
+    n_out, L = plan.n_out, plan.mxu8.ctx.L
+
+    def lanes(x):
+        return [x[l * n_out : (l + 1) * n_out].to(torch.int64) for l in range(L)]
+
+    return torch.cat(plan.mxu8.ctx.add_mod_lanes(lanes(a), lanes(b)), dim=0).to(torch.int32)
+
+
+def _fused_share_combine_mxu8_plain(
+    plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int = 0, acc_in=None
+) -> torch.Tensor:
+    """The fused function in plain int64 tensor code (any device): the
+    CUDA kernel's arithmetic, step for step, with the same Philox mapping.
+    Chunk ``c`` of ``plan.n_chunks`` draws with seed ``seed + c *
+    seed_stride``; the chunks' canonical results are added mod p. With
+    ``acc_in`` the result is added onto ``acc_in`` in place, and ``acc_in``
+    is returned."""
+    rows = plan.rows
+    out = None
+    for c in range(plan.n_chunks):
+        res = _plain_chunk(plan, sec[c * rows : (c + 1) * rows], (seed + c * seed_stride) & _M32)
+        out = res if out is None else _add_mod_lm(plan, out, res)
+    if acc_in is None:
+        return out
+    acc_in.copy_(_add_mod_lm(plan, acc_in, out))
+    return acc_in
+
+
 # ------------------------------------------------------------------ kernel
 
 
-def _launch_mxu8_kernel(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.Tensor:
-    """One launch of ``csrc/mxu8.cu`` on the current stream."""
-    global mxu8_launches
+def _launch_mxu8_kernel(
+    plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int, acc_in
+) -> torch.Tensor:
+    """One launch of ``csrc/mxu8.cu`` on the current stream: the chunked
+    variant (B2) when the plan has several chunks, the accumulate variant
+    (B3) with ``acc_in``, else the single-chunk kernel (B1)."""
+    global mxu8_launches, mxu8_chunked_launches, mxu8_acc_launches
     from sda_tpu_torch.ops.cuda_build import load_kernel_library
 
     if sec.dtype != torch.int8 or sec.dim() != 2 or not sec.is_contiguous():
@@ -643,7 +713,8 @@ def _launch_mxu8_kernel(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.T
     mxu8 = plan.mxu8
     if (plan.n * mxu8.L8 + 1 + 15) // 16 > 12:
         raise ValueError("n * L8 + 1 > 192 output rows: not supported by the kernel")
-    lib = load_kernel_library("mxu8.cu")
+    variant = "mxu8_chunked" if plan.n_chunks > 1 else "mxu8_acc" if acc_in is not None else "mxu8_fused"
+    lib = load_kernel_library(*KERNEL_VARIANTS[variant])
     fn = lib.sda_mxu8_fused
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -659,9 +730,12 @@ def _launch_mxu8_kernel(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.T
         L, mxu8.chunk8, int(plan.use_special), e, c, mxu8.ctx.p_inv_w,
         plan.rp, plan.words_per_p, plan.n_bytes,
         np.uint32(seed & _M32).view(np.int32), 0, off_c2, off_consts, off_p,
-        plan.consts.shape[0],
+        plan.consts.shape[0], plan.n_chunks, np.uint32(seed_stride & _M32).view(np.int32),
     ], dtype=np.int32)
-    out = torch.empty((L * plan.n_out, nbp), dtype=torch.int32, device=sec.device)
+    if acc_in is None:
+        out = torch.empty((L * plan.n_out, nbp), dtype=torch.int32, device=sec.device)
+    else:
+        out = acc_in  # B3 reads the running sums from out and adds onto them
     with torch.cuda.device(sec.device):
         stream = torch.cuda.current_stream(sec.device).cuda_stream
         err = fn(
@@ -670,28 +744,57 @@ def _launch_mxu8_kernel(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.T
             params.ctypes.data, len(params), stream,
         )
     if err != 0:
-        raise RuntimeError(f"mxu8 kernel launch failed: cudaError {err}")
-    mxu8_launches += 1
+        raise RuntimeError(f"{variant} kernel launch failed: cudaError {err}")
+    if variant == "mxu8_chunked":
+        mxu8_chunked_launches += 1
+    elif variant == "mxu8_acc":
+        mxu8_acc_launches += 1
+    else:
+        mxu8_launches += 1
     return out
 
 
-def run_mxu8(plan: Mxu8Plan, sec_planar: torch.Tensor, seed: int = 0) -> torch.Tensor:
+def run_mxu8(
+    plan: Mxu8Plan, sec_planar: torch.Tensor, seed: int = 0, lanes: int | None = None,
+    acc_in=None,
+) -> torch.Tensor:
     """Run a planned fused call: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    if sec_planar.shape[0] != plan.rows:
+    version for a CPU tensor.
+
+    ``sec_planar`` holds ``plan.n_chunks`` chunks of ``plan.rows`` rows. A
+    chunked plan needs ``lanes``: chunk ``c`` draws with seed ``seed + c *
+    (NBP // lanes)`` (module docstring). ``acc_in`` (single-chunk plans
+    only): ``[L * n_out, NBP]`` int32 canonical running sums, updated in
+    place and returned.
+    """
+    all_rows, nbp = sec_planar.shape
+    if all_rows != plan.rows * plan.n_chunks:
         raise ValueError("sec_planar rows do not match the plan")
+    if lanes is not None and nbp % lanes:
+        raise ValueError(f"NBP={nbp} must be a multiple of lanes={lanes}")
+    if plan.n_chunks > 1 and lanes is None:
+        raise ValueError("a chunked plan needs lanes (the per-chunk seed stride is NBP // lanes)")
+    seed_stride = nbp // lanes if plan.n_chunks > 1 else 0
+    if acc_in is not None:
+        if plan.n_chunks != 1:
+            raise ValueError("acc_in accumulation requires n_chunks == 1")
+        if (acc_in.dtype != torch.int32 or tuple(acc_in.shape) != (plan.mxu8.ctx.L * plan.n_out, nbp)
+                or acc_in.device != sec_planar.device or not acc_in.is_contiguous()):
+            raise ValueError(
+                "acc_in must be a contiguous int32 [L * n_out, NBP] tensor on sec_planar's device"
+            )
     seed = int(seed)
     if sec_planar.device.type == "cuda":
-        return _launch_mxu8_kernel(plan, sec_planar, seed)
+        return _launch_mxu8_kernel(plan, sec_planar, seed, seed_stride, acc_in)
     if sec_planar.device.type == "cpu":
-        return _fused_share_combine_mxu8_plain(plan, sec_planar, seed)
+        return _fused_share_combine_mxu8_plain(plan, sec_planar, seed, seed_stride, acc_in)
     raise ValueError(f"unsupported device {sec_planar.device}")
 
 
 def fused_share_combine_mxu8(
     mxu8: Mxu8Context,
     share_matrix,  # [m, n] canonical (normal-domain) host matrix
-    sec_planar,  # [P*slots*L8, NBP] int8 biased (slots = k or m)
+    sec_planar,  # [n_chunks*P*slots*L8, NBP] int8 biased (slots = k or m)
     p_count: int,
     k: int,
     rand_count: int,
@@ -700,7 +803,7 @@ def fused_share_combine_mxu8(
     reconstruct_matrix=None,  # optional [n, k2]: fuse the second modmat
     pg: int | None = None,
     n_chunks: int = 1,
-    acc_in=None,
+    acc_in=None,  # optional [L*n_out, NBP] int32: running canonical sums
     rand_participants: int | None = None,
 ) -> torch.Tensor:
     """Byte-limb fused share + combine (+ optional fused reconstruct).
@@ -714,28 +817,26 @@ def fused_share_combine_mxu8(
     is the number of randomness draws summed per slot (default
     ``p_count``). ``pg`` is kept for the reference's signature and guard.
 
-    ``n_chunks > 1`` and ``acc_in`` (the reference's multi-chunk grid and
-    streaming accumulate) are not ported yet: ROADMAP.md, Queue B, items B2
-    and B3.
+    ``n_chunks > 1``: ``sec_planar`` stacks that many ``p_count``-participant
+    chunks along its rows and the whole job runs as ONE launch (B2); each
+    chunk stays inside the carry-chain bound, and with
+    ``reconstruct_matrix`` each chunk is reconstructed before the sum (the
+    reconstruction is linear). Total participants: ``n_chunks * p_count``.
+
+    ``acc_in``: running canonical sums for host-driven streaming (B3): this
+    call's result is added onto ``acc_in`` in place and ``acc_in`` itself
+    is returned (the reference aliases the buffer to its output and donates
+    it). Callers that reuse the old sums pass a clone. Mutually exclusive
+    with ``n_chunks > 1``.
     """
     if acc_in is not None and n_chunks != 1:
         raise ValueError("acc_in accumulation requires n_chunks == 1")
-    all_rows, nbp = sec_planar.shape
+    all_rows = sec_planar.shape[0]
     if all_rows % n_chunks:
         raise ValueError("sec_planar rows must divide evenly into n_chunks")
-    if nbp % lanes:
-        raise ValueError(f"NBP={nbp} must be a multiple of lanes={lanes}")
-    if n_chunks != 1:
-        raise NotImplementedError(
-            "n_chunks > 1 (the chunked reduction grid) is ROADMAP.md Queue B item B2"
-        )
-    if acc_in is not None:
-        raise NotImplementedError(
-            "acc_in (in-kernel streaming accumulate) is ROADMAP.md Queue B item B3"
-        )
     plan = mxu8_plan(
-        mxu8, share_matrix, all_rows, p_count, k, rand_count,
+        mxu8, share_matrix, all_rows // n_chunks, p_count, k, rand_count,
         reconstruct_matrix=reconstruct_matrix, pg=pg,
-        rand_participants=rand_participants, device=sec_planar.device,
+        rand_participants=rand_participants, device=sec_planar.device, n_chunks=n_chunks,
     )
-    return run_mxu8(plan, sec_planar, seed)
+    return run_mxu8(plan, sec_planar, seed, lanes=lanes, acc_in=acc_in)

@@ -35,6 +35,23 @@ def test_port_imports_no_jax_and_no_reference():
     assert count >= 12  # every submodule of the slice was imported
 
 
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    """Every import in chip_smoke.py, at any depth of the file, names
+    neither jax nor the JAX package."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "sda_tpu_torch.models" in names  # the walk does see the nested imports
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "sda_tpu")]
+    assert not bad, bad
+
+
 def test_entry_points_need_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

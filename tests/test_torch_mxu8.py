@@ -236,9 +236,13 @@ def test_guards_match_reference():
         t_m8.fused_share_combine_mxu8(mxu8, M, ok, 2, 3, 4, lanes=8, pg=3)
     with pytest.raises(ValueError, match="acc_in accumulation requires"):
         t_m8.fused_share_combine_mxu8(mxu8, M, ok, 2, 3, 4, lanes=8, n_chunks=2, acc_in=ok)
-    with pytest.raises(NotImplementedError, match="B2"):
-        t_m8.fused_share_combine_mxu8(mxu8, M, torch.cat([ok, ok]), 2, 3, 4, lanes=8, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="B3"):
+    # n_chunks > 1 and acc_in are supported (kernels B2 and B3); acc_in is
+    # updated in place and returned, and must be an int32 output-shaped tensor
+    out = t_m8.fused_share_combine_mxu8(mxu8, M, torch.cat([ok, ok]), 2, 3, 4, lanes=8, n_chunks=2)
+    assert out.shape == (eng.ctx.L * 8, 8) and out.dtype == torch.int32
+    acc = torch.zeros_like(out)
+    assert t_m8.fused_share_combine_mxu8(mxu8, M, ok, 2, 3, 4, lanes=8, acc_in=acc) is acc
+    with pytest.raises(ValueError, match="acc_in must be"):
         t_m8.fused_share_combine_mxu8(mxu8, M, ok, 2, 3, 4, lanes=8, acc_in=ok)
     with pytest.raises(ValueError, match="too small"):
         t_m8.Mxu8Context.create(LimbContext.create(251))
