@@ -38,7 +38,29 @@ Phases, each of which raises on failure:
    with ``combined_randomness`` False and True: one launch each, jobs 0, 1
    and 511 revealed in full, the kernel against its plain version, timed;
 7. forward: the CIOS ``forward`` of the headline model at 32 participants
-   must reveal the numpy sum mod p.
+   must reveal the numpy sum mod p;
+8. chacha compare: ``csrc/chacha.cu``'s B4 (keystream) and B5 (fused fold)
+   on the card against their plain versions on CPU copies, bit-equal: B4
+   at the RFC zero-seed vector and 300 seeds x 257 blocks,
+   ``expand_masks_device`` at four moduli, B5 at 2^63 - 871 and 2^55 - 55
+   (1,100 seeds x 264 dimensions, also against the host oracle), B5 with
+   its rejection zone lowered to draws >= 2^62 (about 3/4 of them hit:
+   the per-seed counts against the plain version's, and the fused route's
+   host fix-up of every seed that hit), 16,500 seeds through
+   ``combine_masks_device`` (exactly 2 B5 launches) and the
+   forced-rejection modulus 2^62 + 1 with and without the host fix-up;
+9. chacha reveal: 10,000 seeds x 1,000,002 dimensions at 2^63 - 871
+   through ``ChaChaMasker(...).combine`` on the forced device route: one B5
+   launch per combine, exact on dimensions [0, 512), the last 514 and the
+   8 draws of every 1,000th block counter against a numpy oracle, the B5
+   launch timed with CUDA events and the whole combine (the masker with
+   every default: the card's device route) on the host clock, beside the
+   launch's bound;
+10. chunk route: 256 seeds x 1,000,002 through ``combine_masks_device``
+    (two B4 launches), exact on the same windows, timed;
+11. full-mask reveal: 64 masks x 1,000,002 through ``FullMasker(...)
+    .combine`` on the forced device route (``device_combine``), equal to
+    the host fold.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or run
@@ -65,6 +87,22 @@ SERVING = dict(dimension=1_002, participants=100, jobs=512, job_lanes=384)
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 tensor-core ops/s
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1.979e15
+# 32-bit integer issue: 132 SMs, each issuing at most one warp instruction
+# per clock on each of its 4 schedulers (128 lanes a clock); the SM's
+# dedicated INT32 pipes have 64 lanes, and ptxas moves adds onto the FMA
+# pipe (IMAD), so 128, not 64, is the ceiling an integer kernel can reach
+SMS = 132
+ISSUE_LANES = 128
+INT32_LANES = 64
+# the reveal is checked on dimensions [0, window), the last tail and the 8
+# draws of every stride-th block counter between them
+CHACHA = dict(seeds=10_000, dimension=1_000_002, chunk_seeds=256, fullmask=64, window=512,
+              tail=514, stride=1000)
+# counted 32-bit operations of one ChaCha20 block: 10 double rounds of 8
+# quarter rounds (4 adds, 4 xors, 4 rotates each) and 16 final adds; B5
+# adds the 4 limb accumulates of each of the block's 8 draws
+CHACHA_BLOCK_OPS = 976
+FOLD_DRAW_OPS = 4 * 8
 
 
 def _card_line() -> str:
@@ -77,9 +115,19 @@ def _card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def _kernel_label(mangled: str):
+    """Short name of a kernel instantiation: ``MT<n>`` for the mxu8
+    kernel's templates, the function name for the ChaCha kernels."""
+    m = re.search(r"mxu8_fused_kernelILi(\d+)E", mangled)
+    if m:
+        return f"MT{m.group(1)}"
+    m = re.search(r"chacha_(?:keystream|fold)_kernel", mangled)
+    return m.group(0) if m else None
+
+
 def _ptxas_summary(report: str) -> str:
-    """``MT:registers`` for every kernel instantiation in a ptxas report,
-    and the largest spill."""
+    """``label:registers`` for every kernel instantiation in a ptxas
+    report, and the largest spill."""
     regs, spill, current = {}, 0, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -90,27 +138,78 @@ def _ptxas_summary(report: str) -> str:
             spill = max(spill, int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
-            mt = re.search(r"mxu8_fused_kernelILi(\d+)E", current)
-            if mt:
-                regs[int(mt.group(1))] = int(m.group(1))
+            label = _kernel_label(current)
+            if label:
+                regs[label] = int(m.group(1))
             current = None
-    return " ".join(f"MT{k}:{v}" for k, v in sorted(regs.items())) + f"; max spill {spill} B"
+    order = sorted(regs, key=lambda k: (0, int(k[2:]), "") if k.startswith("MT") else (1, 0, k))
+    return " ".join(f"{k}:{regs[k]}" for k in order) + f"; max spill {spill} B"
+
+
+def _sass_counts(source: str, defines=()) -> dict:
+    """Per kernel of a built library, the count of each SASS opcode that
+    ``cuobjdump -sass`` lists ({} without cuobjdump)."""
+    import collections
+    import shutil
+
+    from sda_tpu_torch.ops.cuda_build import _library_path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    proc = subprocess.run([tool, "-sass", str(_library_path(source, tuple(defines)))],
+                          capture_output=True, text=True, timeout=120, check=True)
+    counts, current = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = _kernel_label(m.group(1))
+            if current:
+                counts[current] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and current:
+            counts[current][m.group(1)] += 1
+    return counts
+
+
+def _max_sm_mhz() -> float:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+def _variants() -> dict:
+    from sda_tpu_torch.ops import chacha_kernel, mxu8
+
+    return {**mxu8.KERNEL_VARIANTS, **chacha_kernel.KERNEL_VARIANTS}
 
 
 def phase_build():
     from sda_tpu_torch.ops.cuda_build import build_kernel_libraries, ptxas_report
-    from sda_tpu_torch.ops.mxu8 import KERNEL_VARIANTS
 
+    variants = _variants()
     t0 = time.perf_counter()
-    build_kernel_libraries(KERNEL_VARIANTS.values())
+    build_kernel_libraries(variants.values())
     seconds = time.perf_counter() - t0
-    return seconds, {name: _ptxas_summary(ptxas_report(*v)) for name, v in KERNEL_VARIANTS.items()}
+    return seconds, {name: _ptxas_summary(ptxas_report(*v)) for name, v in variants.items()}
 
 
 def _reset_counts():
+    from sda_tpu_torch.ops import chacha_kernel as ck
     from sda_tpu_torch.ops import mxu8 as m8
 
     m8.mxu8_launches = m8.mxu8_chunked_launches = m8.mxu8_acc_launches = 0
+    ck.chacha_keystream_launches = ck.chacha_fold_launches = 0
+
+
+def _chacha_counts():
+    from sda_tpu_torch.ops import chacha_kernel as ck
+
+    return {"chacha_keystream": ck.chacha_keystream_launches,
+            "chacha_fold": ck.chacha_fold_launches}
 
 
 def _counts():
@@ -621,6 +720,331 @@ def phase_forward(participants: int = 32):
     return seconds
 
 
+def _host_fold(seeds, dimension: int, modulus: int):
+    """The port's host oracle: the exact expansion of every seed, folded
+    with ``trunc_add_mod`` (what ``ChaChaMasker`` does on the host route)."""
+    import numpy as np
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import trunc_add_mod
+
+    acc = np.zeros(dimension, dtype=np.int64)
+    for row in chacha.expand_masks(seeds, dimension, modulus):
+        acc = trunc_add_mod(acc, row, modulus)
+    return acc
+
+
+def _chacha_bound(ops: float, nbytes: float, mhz: float):
+    """(bound ms, "operations" | "bytes", ms at the 64 INT32 lanes alone):
+    the larger of the 32-bit operations over the SMs' issue rate at the
+    maximum SM clock and the bytes over the HBM rate."""
+    ops_ms = ops / (SMS * ISSUE_LANES * mhz * 1e6) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    int32_only_ms = ops / (SMS * INT32_LANES * mhz * 1e6) * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", int32_only_ms
+
+
+def phase_compare_chacha():
+    """B4 and B5 on the card against their plain versions on CPU copies of
+    the same inputs, bit-equal; the grouping and the forced-rejection fix-up
+    through ``combine_masks_device``. Returns case counts, max errors, and
+    the mid-shape times (kernel and plain version on the card)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import find_prime_field, find_special_prime_field
+    from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    cases = {"chacha_keystream": 0, "chacha_fold": 0, "expand": 0}
+    max_err = {"chacha_keystream": 0, "chacha_fold": 0}
+
+    def check(kernel, got, want, what):
+        err = int((got.cpu().to(torch.int64) - want.cpu().to(torch.int64)).abs().max())
+        if kernel in max_err:
+            max_err[kernel] = max(max_err[kernel], err)
+        if err:
+            raise AssertionError(f"{kernel}: {what}: max err {err}")
+        cases[kernel] += 1
+
+    rng = np.random.default_rng(60)
+    seeds = [chacha.new_seed(128, rng) for _ in range(1100)]
+    cpu = torch.device("cpu")
+
+    # B4: the RFC zero-seed vector and a ragged block count
+    zero = ck.chacha_keystream(np.zeros((1, 8), np.uint32), 1, device=DEVICE)
+    if (zero[0, 0, :4].cpu().to(torch.int64) & 0xFFFFFFFF).tolist() != [
+            0xADE0B876, 0x903DF1A0, 0xE56A5D40, 0x28BD8653]:
+        raise AssertionError("B4 misses the RFC zero-seed vector")
+    check("chacha_keystream", zero, ck.chacha_keystream(np.zeros((1, 8), np.uint32), 1,
+                                                        device="cpu"), "zero seed")
+    keys = ck._key_tensor(seeds[:300], torch.device(DEVICE))
+    check("chacha_keystream", ck.chacha_keystream(seeds[:300], 257, device=DEVICE),
+          ck._keystream_plain(keys.cpu(), 257), "300 seeds x 257 blocks")
+    mid4 = {
+        "kernel": cuda_time(lambda i: ck._launch_keystream(keys, 257), iters=10, warmup=2),
+        "plain": cuda_time(lambda i: ck._keystream_plain(keys, 257), iters=1, warmup=1),
+        "shape": "S=300 nblocks=257",
+    }
+
+    # the chunk route's expansion (B4 + the torch reduction) at four moduli
+    for modulus in (433, (1 << 31) - 1, (1 << 61) - 1, find_prime_field(62, 8, 9)[0]):
+        m_dev, r_dev = ck.expand_masks_device(seeds[:64], 1000, modulus, device=DEVICE)
+        m_cpu, r_cpu = ck.expand_masks_device(seeds[:64], 1000, modulus, device="cpu")
+        check("expand", m_dev, m_cpu, f"expand masks p={modulus}")
+        check("expand", r_dev, r_cpu, f"expand rejection counts p={modulus}")
+
+    # B5 at e = 63 and e = 55 (the carry*K product that once wrapped)
+    mid5 = None
+    for e in (63, 55):
+        p = find_special_prime_field(e, 8, 9)[0]
+        limbs, rej = ck.fold_masks_device(seeds, 264, p, device=DEVICE)
+        t0 = time.perf_counter()
+        want, want_rej = ck.fold_masks_device(seeds, 264, p, device="cpu")
+        plain_cpu_s = time.perf_counter() - t0
+        check("chacha_fold", limbs, want, f"fold e={e} limbs")
+        check("chacha_fold", torch.from_numpy(rej), torch.from_numpy(want_rej),
+              f"fold e={e} rejection counts")
+        la = limbs.cpu().numpy().astype(np.int64)
+        got = la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
+        if got.tolist() != _host_fold(seeds, 264, p).tolist():
+            raise AssertionError(f"B5 at e={e} != the host oracle fold")
+        if e == 63:
+            fkeys = ck._key_tensor(seeds, torch.device(DEVICE))
+            mid5 = {
+                "kernel": cuda_time(lambda i: ck._launch_fold(fkeys, 264, p), iters=10, warmup=2),
+                "plain": cuda_time(lambda i: ck._fold_plain(fkeys, 264, p), iters=1, warmup=1),
+                "plain_cpu_ms": plain_cpu_s * 1e3, "shape": "S=1100 d=264",
+            }
+
+    # B5's rejection path with hits: the zone lowered to draws >= 2^62
+    # (hi >= 2^30). The limbs do not depend on the zone; the per-seed counts
+    # must equal the plain version's, and the fused route's host fix-up of
+    # every seed that hit (a no-op at this modulus) must stay exact
+    p63 = find_special_prime_field(63, 8, 9)[0]
+    with mock.patch.object(ck, "_zone", lambda modulus: (0x40000000, 0)):
+        limbs, rej = ck.fold_masks_device(seeds, 264, p63, device=DEVICE)
+        want, want_rej = ck.fold_masks_device(seeds, 264, p63, device="cpu")
+        check("chacha_fold", limbs, want, "lowered zone limbs")
+        check("chacha_fold", torch.from_numpy(rej), torch.from_numpy(want_rej),
+              "lowered zone rejection counts")
+        out, hit = ck.combine_masks_device(seeds[:600], 48, p63, device=DEVICE)
+    zone_hits = int(want_rej.sum())
+    if int(want_rej.min()) == 0 or len(hit) != 600:
+        raise AssertionError(f"the lowered zone missed seeds ({len(hit)} of 600 hit)")
+    if out.tolist() != _host_fold(seeds[:600], 48, p63).tolist():
+        raise AssertionError("the fused route's host fix-up is not exact")
+    cases["chacha_fold"] += 1
+
+    # grouping: 16,500 seeds are two B5 launches (16,384 + 116)
+    many = [chacha.new_seed(128, rng) for _ in range(16_500)]
+    _reset_counts()
+    out, bad = ck.combine_masks_device(many, 16, p63, device=DEVICE)
+    if _chacha_counts() != {"chacha_keystream": 0, "chacha_fold": 2}:
+        raise AssertionError(f"grouping launched {_chacha_counts()}, not 2 B5 launches")
+    if bad or out.tolist() != _host_fold(many, 16, p63).tolist():
+        raise AssertionError(f"grouping != the host oracle (bad {bad})")
+    cases["chacha_fold"] += 1
+
+    # forced rejections (2^62 + 1: ~1/4 of the draws): the fix-up is exact
+    forced = (1 << 62) + 1
+    _, bad = ck.combine_masks_device(seeds[:6], 48, forced, fixup_host=False, device=DEVICE)
+    if not bad:
+        raise AssertionError("2^62 + 1 was supposed to force rejections")
+    out, bad2 = ck.combine_masks_device(seeds[:6], 48, forced, device=DEVICE)
+    if bad2 != bad or [int(x) for x in out] != _host_fold(seeds[:6], 48, forced).tolist():
+        raise AssertionError("the forced-rejection fix-up is not exact")
+    cases["chacha_keystream"] += 1
+    return {"cases": cases, "max_err": max_err, "mid4": mid4, "mid5": mid5,
+            "forced_bad": len(bad), "zone_hits": zone_hits}
+
+
+def _window_oracle(seeds, dimension: int, modulus: int, bad, dims):
+    """The fold of every seed's exact mask on the dimensions ``dims``: the
+    port's ``chacha_core_blocks`` on just the block counters that hold
+    them, each draw ``v mod p``, folded with ``trunc_add_mod``; a seed in
+    ``bad`` takes its exact (rejection-skipping) host expansion instead."""
+    import numpy as np
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import trunc_add_mod
+
+    counters = np.unique(dims // 8)
+    keys = np.zeros((len(seeds), 8), dtype=np.uint32)
+    for i, w in enumerate(seeds):
+        keys[i, : len(w)] = w
+    states = np.zeros((len(seeds), len(counters), 16), dtype=np.uint32)
+    states[:, :, :4] = [0x61707865, 0x3320646E, 0x79622D32, 0x6B206574]
+    states[:, :, 4:12] = keys[:, None, :]
+    states[:, :, 12] = counters.astype(np.uint32)[None, :]
+    words = chacha.chacha_core_blocks(states).reshape(len(seeds), len(counters), 8, 2)
+    draws = (words[..., 0].astype(np.uint64) << np.uint64(32)) | words[..., 1].astype(np.uint64)
+    pos = np.searchsorted(counters, dims // 8) * 8 + dims % 8
+    vals = (draws.reshape(len(seeds), -1)[:, pos] % np.uint64(modulus)).astype(np.int64)
+    for i in bad:
+        vals[i] = chacha.expand_masks([seeds[i]], dimension, modulus)[0][dims]
+    acc = np.zeros(len(dims), dtype=np.int64)
+    for row in vals:
+        acc = trunc_add_mod(acc, row, modulus)
+    return acc
+
+
+def _windows(dimension: int):
+    import numpy as np
+
+    c = CHACHA
+    counters = np.arange(c["stride"], dimension // 8, c["stride"])
+    strided = (counters[:, None] * 8 + np.arange(8)).reshape(-1)
+    return np.unique(np.concatenate([np.arange(c["window"]), strided,
+                                     np.arange(dimension - c["tail"], dimension)]))
+
+
+def phase_chacha_reveal(mhz: float, iters: int = 5):
+    """10,000 seeds x 1,000,002 dimensions through ChaChaMasker's forced
+    device route: one B5 launch per combine, exact on both windows."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.masking import ChaChaMasker
+    from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.routing import RoutingPolicy
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    S, D = CHACHA["seeds"], CHACHA["dimension"]
+    p = find_special_prime_field(63, 8, 9)[0]
+    rng = np.random.default_rng(70)
+    seeds = [chacha.new_seed(128, rng) for _ in range(S)]
+    seeds_i64 = [np.array(w, dtype=np.int64) for w in seeds]
+    masker = ChaChaMasker(p, D, 128, routing=RoutingPolicy.force("device"), device=DEVICE)
+    torch.cuda.synchronize()
+
+    # the main path: one combine, counted
+    _reset_counts()
+    t0 = time.perf_counter()
+    combined = masker.combine(seeds_i64)
+    first_s = time.perf_counter() - t0
+    counts = _chacha_counts()
+    if counts != {"chacha_keystream": 0, "chacha_fold": 1}:
+        raise AssertionError(f"the chacha reveal launched {counts}, not one B5 launch")
+    if combined.shape != (D,) or combined.dtype != np.int64 or not (
+            int(combined.min()) >= 0 and int(combined.max()) < p):
+        raise AssertionError("the chacha reveal is not D canonical int64 values")
+
+    # the same launch alone: its rejection counts and its limbs
+    keys = ck._key_tensor(seeds, torch.device(DEVICE))
+    limbs, rej = ck._launch_fold(keys, D, p)
+    bad = [int(i) for i in torch.nonzero(rej).flatten().tolist()]
+    dims = _windows(D)
+    want = _window_oracle(seeds, D, p, bad, dims)
+    if combined[dims].tolist() != want.tolist():
+        raise AssertionError("the chacha reveal != the numpy oracle on its windows")
+    checked = len(dims)
+    if not bad:
+        la = limbs.cpu().numpy().astype(np.int64)
+        raw = la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
+        if not np.array_equal(raw, combined):
+            raise AssertionError("a second B5 launch differs from the combine's")
+
+    t = cuda_time(lambda i: ck._launch_fold(keys, D, p), iters=iters, warmup=1)
+    host = []
+    default = ChaChaMasker(p, D, 128)  # every default: the device route on the card
+    for _ in range(3):
+        _reset_counts()
+        t0 = time.perf_counter()
+        default.combine(seeds_i64)
+        host.append(time.perf_counter() - t0)
+        if _chacha_counts() != counts:
+            raise AssertionError(f"a timed combine launched {_chacha_counts()}")
+    nb = -(-D // 8)
+    ops = float(S) * nb * (CHACHA_BLOCK_OPS + FOLD_DRAW_OPS)
+    nbytes = S * 32 + D * 16 + S * 4
+    bound_ms, bound_by, int32_only_ms = _chacha_bound(ops, nbytes, mhz)
+    return {
+        "launches": counts["chacha_fold"], "timing": t, "bad": len(bad), "checked": checked,
+        "host_ms": sorted(h * 1e3 for h in host), "first_host_ms": first_s * 1e3,
+        "bound_ms": bound_ms, "bound_by": bound_by, "int32_only_ms": int32_only_ms,
+        "ops": ops, "bytes": nbytes, "shape": f"S={S} d={D} p=2^63-871",
+    }
+
+
+def phase_chunk_route(mhz: float, iters: int = 10):
+    """256 seeds x 1,000,002 dimensions: S < 512, so the chunk route (B4 per
+    seed chunk, the torch reduction, sum_mod), exact on both windows."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    S, D = CHACHA["chunk_seeds"], CHACHA["dimension"]
+    p = find_special_prime_field(63, 8, 9)[0]
+    rng = np.random.default_rng(80)
+    seeds = [chacha.new_seed(128, rng) for _ in range(S)]
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    out, bad = ck.combine_masks_device(seeds, D, p, device=DEVICE)
+    host_s = time.perf_counter() - t0
+    counts = _chacha_counts()
+    if counts["chacha_fold"] or counts["chacha_keystream"] < 1:
+        raise AssertionError(f"the chunk route launched {counts}")
+    dims = _windows(D)
+    if len(out) != D or [int(x) for x in out[dims]] != _window_oracle(
+            seeds, D, p, bad, dims).tolist():
+        raise AssertionError("the chunk route != the numpy oracle on its windows")
+
+    seed_chunk = max(128, ck._CHUNK_BUDGET_BYTES // (D * 4 * 4))  # the budget rule, L = 4
+    if counts["chacha_keystream"] != -(-S // seed_chunk):
+        raise AssertionError(f"the chunk route launched B4 {counts['chacha_keystream']} times "
+                             f"for {-(-S // seed_chunk)} seed chunks")
+    nb = -(-2 * D // 16)
+    chunk = min(S, seed_chunk)
+    keys = ck._key_tensor(seeds[:chunk], torch.device(DEVICE))
+    t = cuda_time(lambda i: ck._launch_keystream(keys, nb), iters=iters, warmup=2)
+    ops = float(chunk) * nb * CHACHA_BLOCK_OPS
+    nbytes = chunk * 32 + chunk * nb * 64
+    bound_ms, bound_by, int32_only_ms = _chacha_bound(ops, nbytes, mhz)
+    return {
+        "launches": counts["chacha_keystream"], "timing": t, "host_ms": host_s * 1e3,
+        "bad": len(bad), "bound_ms": bound_ms, "bound_by": bound_by,
+        "int32_only_ms": int32_only_ms, "bytes": nbytes, "ops": ops,
+        "shape": f"S={chunk} nblocks={nb} (one of {counts['chacha_keystream']} seed chunks of "
+                 f"S={S} d={D})",
+    }
+
+
+def phase_fullmask():
+    """64 canonical masks x 1,000,002 through FullMasker's forced device
+    route (device_combine), against the host fold."""
+    import numpy as np
+
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.masking import FullMasker
+    from sda_tpu_torch.routing import RoutingPolicy
+
+    n, D = CHACHA["fullmask"], CHACHA["dimension"]
+    p = find_special_prime_field(63, 8, 9)[0]
+    masks = list(np.random.default_rng(90).integers(0, p, size=(n, D), dtype=np.int64))
+    t0 = time.perf_counter()
+    got = FullMasker(p, routing=RoutingPolicy.force("device"), device=DEVICE).combine(masks)
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = FullMasker(p, routing=RoutingPolicy.force("host")).combine(masks)
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError("the full-mask reveal on the card != the host fold")
+    return {"device_ms": device_s * 1e3, "host_ms": host_s * 1e3,
+            "shape": f"{n} masks x d={D} p=2^63-871"}
+
+
 def main() -> int:
     try:
         import torch
@@ -642,6 +1066,14 @@ def main() -> int:
     print(f"build: {build_s:.1f} s (nvcc, sm_90a, {len(ptxas)} variants in parallel)", flush=True)
     for variant, summary in ptxas.items():
         print(f"build: ptxas registers {variant}: {summary}", flush=True)
+    from sda_tpu_torch.ops.chacha_kernel import KERNEL_VARIANTS as CHACHA_VARIANTS
+
+    sass = _sass_counts(*CHACHA_VARIANTS["chacha"])
+    for kernel, ops in sass.items():
+        top = ", ".join(f"{op} {n}" for op, n in ops.most_common(6))
+        print(f"build: sass {kernel}: {sum(ops.values())} instructions ({top})", flush=True)
+    if not sass:
+        print("build: sass not listed (no cuobjdump)", flush=True)
 
     cases, cmp_err, mid = phase_compare()
     print(f"compare: {cases} kernel/plain cases bit-equal at the mid shape ({mid['shape']}): "
@@ -704,6 +1136,50 @@ def main() -> int:
 
     fwd_s = phase_forward()
     print(f"forward: CIOS forward, 32 x {HEADLINE_DIM}, revealed exactly in {fwd_s:.3f} s", flush=True)
+
+    mhz = _max_sm_mhz()
+    cc = phase_compare_chacha()
+    m4, m5 = cc["mid4"], cc["mid5"]
+    print(f"chacha compare: B4 {cc['cases']['chacha_keystream']} cases, expand_masks_device "
+          f"{cc['cases']['expand']} (4 moduli), B5 {cc['cases']['chacha_fold']} bit-equal to the "
+          f"plain versions; 16,500 seeds: 2 B5 launches, equal to the host oracle; 2^62 + 1: "
+          f"{cc['forced_bad']} bad seeds, exact after the fix-up; lowered zone: "
+          f"{cc['zone_hits']} hits counted bit-equal, fused-route fix-up of 600 seeds exact",
+          flush=True)
+    print(f"chacha compare: mid shape on {card}: B4 {m4['shape']} kernel "
+          f"{m4['kernel'].median_ms:.4f} ms, plain on card {m4['plain'].median_ms:.4f} ms; B5 "
+          f"{m5['shape']} kernel {m5['kernel'].median_ms:.4f} ms, plain on card "
+          f"{m5['plain'].median_ms:.4f} ms, plain (CPU) {m5['plain_cpu_ms']:.1f} ms", flush=True)
+
+    cr = phase_chacha_reveal(mhz)
+    tr = cr["timing"]
+    hm = cr["host_ms"]
+    print(f"chacha reveal: {cr['shape']} on {card}: one B5 launch per combine, median "
+          f"{tr.median_ms:.4f} ms (min {tr.min_ms:.4f}, max {tr.max_ms:.4f}, "
+          f"{len(tr.samples_ms)} launches, events); bound {cr['bound_ms']:.4f} ms "
+          f"({cr['bound_by']}: {cr['ops']:.4g} INT32 ops at {SMS} x {ISSUE_LANES} lanes x "
+          f"{mhz:.0f} MHz; the {INT32_LANES} INT32 lanes alone {cr['int32_only_ms']:.4f} ms; "
+          f"bytes {cr['bytes'] / PEAK_BYTES * 1e3:.4f} ms)", flush=True)
+    print(f"chacha reveal: ChaChaMasker.combine on the host clock median {hm[1]:.4f} ms (min "
+          f"{hm[0]:.4f}, max {hm[2]:.4f}; first {cr['first_host_ms']:.4f}), "
+          f"{CHACHA['seeds'] / (hm[1] / 1e3):.0f} seeds/s; bad seeds {cr['bad']}; dimensions "
+          f"[0, {CHACHA['window']}), the last {CHACHA['tail']} and {cr['checked']} in all exact",
+          flush=True)
+
+    ch = phase_chunk_route(mhz)
+    tc = ch["timing"]
+    print(f"chunk route: {CHACHA['chunk_seeds']} seeds x {CHACHA['dimension']} on {card}: B4 x "
+          f"{ch['launches']}, combine_masks_device {ch['host_ms']:.4f} ms on the host clock, "
+          f"windows exact, bad seeds {ch['bad']}; B4 {ch['shape']} median "
+          f"{tc.median_ms:.4f} ms (min {tc.min_ms:.4f}, max {tc.max_ms:.4f}), bound "
+          f"{ch['bound_ms']:.4f} ms ({ch['bound_by']}; the {INT32_LANES} INT32 lanes alone "
+          f"{ch['int32_only_ms']:.4f} ms; bytes {ch['bytes'] / PEAK_BYTES * 1e3:.4f} ms)",
+          flush=True)
+
+    fm = phase_fullmask()
+    print(f"full-mask reveal: {fm['shape']} on {card}: FullMasker.combine on the card "
+          f"{fm['device_ms']:.4f} ms on the host clock, equal to the host fold "
+          f"({fm['host_ms']:.4f} ms)", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -770,6 +1246,50 @@ def main() -> int:
             "config4_host_step_ms": c4["host_step_ms"],
             "config4_idle_share": c4["idle_share"],
             "config4_traced_idle_share": c4["traced_idle_share"],
+        },
+        {
+            "name": "chacha_keystream",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/chacha.cu",
+            "replaces": "sda_tpu/ops/chacha_kernel.py:59",
+            "launches": ch["launches"],
+            "max_abs_err": cc["max_err"]["chacha_keystream"],
+            "ms": tc.median_ms,
+            "min_ms": tc.min_ms,
+            "max_ms": tc.max_ms,
+            "plain_ms": m4["plain"].median_ms,
+            "plain_shape": f"{m4['shape']} (mid shape, plain version on the card)",
+            "mid_ms": m4["kernel"].median_ms,
+            "bound_ms": ch["bound_ms"],
+            "bound_by": ch["bound_by"],
+            "int32_lanes_only_ms": ch["int32_only_ms"],
+            "sm_mhz": mhz,
+            "library_ms": None,
+            "shape": ch["shape"],
+            "chunk_route_host_ms": ch["host_ms"],
+        },
+        {
+            "name": "chacha_fold",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/chacha.cu",
+            "replaces": "sda_tpu/ops/chacha_kernel.py:199",
+            "launches": cr["launches"],
+            "max_abs_err": cc["max_err"]["chacha_fold"],
+            "ms": tr.median_ms,
+            "min_ms": tr.min_ms,
+            "max_ms": tr.max_ms,
+            "plain_ms": m5["plain"].median_ms,
+            "plain_shape": f"{m5['shape']} (mid shape, plain version on the card)",
+            "mid_ms": m5["kernel"].median_ms,
+            "bound_ms": cr["bound_ms"],
+            "bound_by": cr["bound_by"],
+            "int32_lanes_only_ms": cr["int32_only_ms"],
+            "sm_mhz": mhz,
+            "library_ms": None,
+            "shape": cr["shape"],
+            "combine_host_ms": hm[1],
+            "seeds_per_s": CHACHA["seeds"] / (hm[1] / 1e3),
+            "fullmask_device_ms": fm["device_ms"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

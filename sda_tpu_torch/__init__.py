@@ -11,9 +11,14 @@ Layer map (bottom-up):
 - :mod:`sda_tpu_torch.ntt`      number-theoretic transform matrices
 - :mod:`sda_tpu_torch.sharing`  additive & packed-Shamir schemes and their
   device spec
-- :mod:`sda_tpu_torch.ops`      limb arithmetic, the CIOS modmat, and the
-  byte-limb fused kernel (CUDA C++ under ``ops/csrc``)
-- :mod:`sda_tpu_torch.engine`   the bulk aggregation executor
+- :mod:`sda_tpu_torch.chacha`   rand-0.3 ChaCha streams (host oracle, numpy)
+- :mod:`sda_tpu_torch.ops`      limb arithmetic, the CIOS modmat, the
+  byte-limb fused kernel and the ChaCha mask kernels (CUDA C++ under
+  ``ops/csrc``)
+- :mod:`sda_tpu_torch.engine`   the bulk aggregation executor and
+  ``device_combine``
+- :mod:`sda_tpu_torch.routing`  measured host-vs-device route decisions
+- :mod:`sda_tpu_torch.masking`  None / Full / ChaCha maskers
 - :mod:`sda_tpu_torch.models`   the federated-aggregation workload
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

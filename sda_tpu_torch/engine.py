@@ -23,6 +23,10 @@ combine and the reconstruction in the hand-written CUDA kernels of
 - ``concat_jobs_lanes`` + ``aggregate_mxu8_kernel_jobs``: many same-shape
   small jobs side by side on the lane axis, one launch (B1).
 
+:func:`device_combine` is the bulk modular sum of many int64 vectors (the
+clerk combine, and the Full-mask reveal of :mod:`sda_tpu_torch.masking`)
+as plain int64 tensor code on the device.
+
 The engine runs on ``cuda`` unless the caller passes another device.
 """
 
@@ -45,6 +49,7 @@ from sda_tpu_torch.sharing import DeviceSchemeSpec
 
 __all__ = [
     "TorchAggregationEngine",
+    "device_combine",
     "limbs_from_numpy",
     "resolve_device",
     "spec_from_numpy",
@@ -60,6 +65,78 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def _add_mod_i64(a: torch.Tensor, b: torch.Tensor, modulus: int) -> torch.Tensor:
+    """``(a + b) mod p`` of canonical int64 tensors, ``p < 2**63``, with no
+    overflow: ``a - (p - b)`` lies in ``(-p, p)``."""
+    s = a - (modulus - b)
+    return torch.where(s < 0, s + modulus, s)
+
+
+def _sum_mod_i64(x: torch.Tensor, modulus: int) -> torch.Tensor:
+    """Modular sum over axis 0 of canonical int64 ``[C, d]``: a tree of
+    :func:`_add_mod_i64`, every intermediate canonical."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        s = _add_mod_i64(x[:half], x[half : 2 * half], modulus)
+        x = torch.cat([s, x[2 * half :]]) if x.shape[0] % 2 else s
+    return x[0]
+
+
+def _host_floor_mod(arr: np.ndarray, modulus: int) -> np.ndarray:
+    """Exact host floor-mod of a chunk holding values outside ``(-p, p)``."""
+    return np.ascontiguousarray(arr % modulus)
+
+
+def device_combine(modulus: int, share_vectors, chunk_size: int = 256, device=None) -> np.ndarray:
+    """Bulk modular sum of many vectors on the device.
+
+    The clerk-side sum of many participants' share vectors, and the
+    Full-mask reveal's sum of every participant's mask. Returns canonical
+    ``[0, p)`` int64 values, protocol-equivalent to the reference's signed
+    fold (representatives may differ; reveal-side ``positive()`` agrees).
+    Odd or even modulus, any width below 2**63.
+
+    ``share_vectors`` may be any iterable (including a generator draining
+    decryptions): vectors stream through the device accumulator in
+    ``chunk_size``-vector chunks, so peak host memory is O(chunk_size x
+    dimension). The tail chunk is summed at its own length: the reference
+    zero-pads it to keep one compiled XLA shape, which eager torch does
+    not need.
+
+    The reference staged each chunk as (lo, hi) u32 pairs because the TPU
+    has no int64; the card has it, so each chunk ships as int64, trunc-
+    domain negatives in ``(-p, 0)`` become canonical by adding p, and the
+    chunk is summed with exact int64 modular adds. Values outside ``(-p,
+    p)`` (never produced by the protocol, possible from a hostile wire) take
+    a host floor-mod for that chunk first; in-domain chunks never do.
+    """
+    if modulus >= (1 << 63):
+        raise ValueError("device_combine requires a modulus below 2**63")
+    dev = resolve_device(device)
+    acc = None
+
+    def flush(acc, buf):
+        arr = np.ascontiguousarray(np.asarray(buf, dtype=np.int64))
+        # min/max (not abs: abs(INT64_MIN) wraps) guard the (-p, p) domain
+        if arr.size and not (int(arr.min()) > -modulus and int(arr.max()) < modulus):
+            arr = _host_floor_mod(arr, modulus)
+        x = torch.from_numpy(arr).to(dev)
+        part = _sum_mod_i64(torch.where(x < 0, x + modulus, x), modulus)
+        return part if acc is None else _add_mod_i64(acc, part, modulus)
+
+    buf: list[np.ndarray] = []
+    for v in share_vectors:
+        buf.append(np.asarray(v, dtype=np.int64))
+        if len(buf) == chunk_size:
+            acc = flush(acc, buf)
+            buf = []
+    if buf:
+        acc = flush(acc, buf)
+    if acc is None:
+        raise ValueError("device_combine requires at least one share vector")
+    return acc.cpu().numpy()
 
 
 def spec_from_numpy(modulus, secret_count, share_count, randomness_count,

@@ -32,6 +32,7 @@ _urandom = os.urandom
 __all__ = [
     "trunc_mod",
     "trunc_add_mod",
+    "trunc_sub_mod",
     "positive",
     "PrimeField",
     "find_prime_field",
@@ -85,6 +86,12 @@ def trunc_add_mod(a, b, m: int) -> np.ndarray:
     return np.where(
         a_neg & b_neg, both_neg, np.where(a_neg ^ b_neg, mixed, both_pos)
     )
+
+
+def trunc_sub_mod(a, b, m: int) -> np.ndarray:
+    """Exact ``trunc_mod(a - b, m)`` without int64 overflow (see
+    :func:`trunc_add_mod`; precondition ``|a|, |b| < m < 2**63``)."""
+    return trunc_add_mod(a, -np.asarray(b, dtype=np.int64), m)
 
 
 def positive(values, modulus):

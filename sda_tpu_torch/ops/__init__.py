@@ -6,4 +6,6 @@
   on limbs.
 - :mod:`sda_tpu_torch.ops.mxu8`   — the byte-limb fused share + combine
   (+ reconstruct): a hand-written CUDA kernel and its plain version.
+- :mod:`sda_tpu_torch.ops.chacha_kernel` — the ChaCha mask expansion and
+  fold: two hand-written CUDA kernels and their plain versions.
 """

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[0])
-    assert count >= 12  # every submodule of the slice was imported
+    assert count >= 18  # every submodule of the slice was imported
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -67,6 +67,27 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FederatedAggregation.additive_small(device="cuda")
     assert FederatedAggregation.packed_64bit(dimension=16, device="cpu").engine.device.type == "cpu"
+
+    from sda_tpu_torch.chacha import new_seed
+    from sda_tpu_torch.engine import device_combine
+    from sda_tpu_torch.masking import ChaChaMasker, FullMasker
+    from sda_tpu_torch.ops.chacha_kernel import combine_masks_device, fold_masks_device
+    from sda_tpu_torch.routing import RoutingPolicy
+
+    p = (1 << 63) - 871
+    seeds = [new_seed(128) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        combine_masks_device(seeds, 16, p)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fold_masks_device(seeds, 16, p)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_combine(p, [[1, 2], [3, 4]])
+    for masker in (ChaChaMasker(p, 16, 128, routing=RoutingPolicy.force("device")),
+                   ChaChaMasker(p, 16, 128)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            masker.combine([[1, 2, 3, 4]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FullMasker(p).combine([[1, 2], [3, 4]])
 
 
 def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
