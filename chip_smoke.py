@@ -6,9 +6,12 @@
 Phases, each of which raises on failure:
 
 1. build: compile every kernel of the main path from ``sda_tpu_torch/ops/csrc``
-   (the three variants of ``mxu8.cu``, one nvcc each, all started together;
-   set-up), print ptxas's registers and spills for every instantiation and
-   the card's name and power limit;
+   (the three variants of ``mxu8.cu``, ``chacha.cu``, ``mxu7.cu`` and
+   ``planar_cios.cu``, one nvcc each, all started together; set-up), print
+   ptxas's registers and spills for every instantiation, the SASS opcode
+   counts (``cuobjdump -sass``) of the ChaCha, planar and headline mxu7
+   kernels, and the card's name and power limit. The B6 and B7 bounds count
+   the instructions of these listings' generator and participant loops;
 2. compare: at a mid shape (16 participants per chunk, 3,000 dimensions,
    lanes=1024) run each kernel on the card and its plain version on CPU
    copies of the same inputs at four moduli, in caller-randomness and PRNG
@@ -60,7 +63,33 @@ Phases, each of which raises on failure:
     (two B4 launches), exact on the same windows, timed;
 11. full-mask reveal: 64 masks x 1,000,002 through ``FullMasker(...)
     .combine`` on the forced device route (``device_combine``), equal to
-    the host fold.
+    the host fold;
+12. mxu7 compare: ``csrc/mxu7.cu`` (B6) on the card against its plain
+    version on CPU copies at the mid shape (16 participants, 3,000
+    dimensions, lanes 1024) and the four moduli of ``_engines``, bit-equal:
+    caller randomness, PRNG rand-sum (P = 16) and PRNG grouped (P = 131),
+    each combined only, ``out7`` and with fused reconstruction, plus the
+    reconstruct-only call; ``share_mxu`` against the CIOS ``share`` and the
+    ``aggregate_mxu`` reveal (``torch._int_mm``) on the card;
+13. gen-3 headline: ``packed_64bit(dimension=1_000_002)``, 768 participants,
+    PRNG mode, through ``engine.aggregate_mxu_kernel``: exactly one B6
+    launch for the step, the reveal on the first 128 lanes, the plain
+    version on the card at the same shape, 20 steps timed with CUDA
+    events; then the same width in caller-randomness mode (48,384 rows,
+    one launch, reveal-checked);
+14. gen-3 streaming: 14 chunks x 768 (one resident chunk re-read) through
+    ``engine.aggregate_mxu_kernel_streaming``: B6 x 15 for the step, the
+    reveal on the first 128 lanes, 5 steps timed and the back-to-back step
+    on the host clock;
+15. planar compare: ``csrc/planar_cios.cu`` (B7) against its plain version
+    on CPU copies at the mid shape, PRNG and caller randomness, at p433,
+    the additive scheme mod 2^61 - 1, a 62-bit prime and 2^127 - 1495;
+16. gen-1 headline: the same model, 768 x 1,000,002, through
+    ``engine.aggregate_fused`` (rows 8): one B7 launch and the CIOS
+    reconstruction per step, the reveal on the first 128 lanes, the plain
+    version on the card on the first 1,024 lanes, the launch and the step
+    timed; ``aggregate_fused_streaming`` over 3 chunks x 64 participants of
+    the same width equal to the one-shot ``aggregate_fused_ext`` result.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or run
@@ -70,6 +99,8 @@ result.
 
 from __future__ import annotations
 
+import collections
+import functools
 import json
 import re
 import subprocess
@@ -103,6 +134,9 @@ CHACHA = dict(seeds=10_000, dimension=1_000_002, chunk_seeds=256, fullmask=64, w
 # adds the 4 limb accumulates of each of the block's 8 draws
 CHACHA_BLOCK_OPS = 976
 FOLD_DRAW_OPS = 4 * 8
+# Philox4x32-10's multipliers as cuobjdump prints an immediate (signed or not)
+PHILOX_MUL_RE = re.compile(r"-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57", re.I)
+GEN1_STREAM = dict(chunks=3, p_chunk=64)
 
 
 def _card_line() -> str:
@@ -116,61 +150,118 @@ def _card_line() -> str:
 
 
 def _kernel_label(mangled: str):
-    """Short name of a kernel instantiation: ``MT<n>`` for the mxu8
-    kernel's templates, the function name for the ChaCha kernels."""
-    m = re.search(r"mxu8_fused_kernelILi(\d+)E", mangled)
+    """Short name of a kernel instantiation: ``MT<n>`` for the mxu8 and
+    mxu7 kernels' templates, ``L<n>`` for the planar CIOS kernel's, the
+    function name for the ChaCha kernels."""
+    m = re.search(r"mxu[78]_fused_kernelILi(\d+)E", mangled)
     if m:
         return f"MT{m.group(1)}"
+    m = re.search(r"planar_cios_kernelILi(\d+)E", mangled)
+    if m:
+        return f"L{m.group(1)}"
     m = re.search(r"chacha_(?:keystream|fold)_kernel", mangled)
     return m.group(0) if m else None
 
 
-def _ptxas_summary(report: str) -> str:
-    """``label:registers`` for every kernel instantiation in a ptxas
-    report, and the largest spill."""
-    regs, spill, current = {}, 0, None
+def _ptxas_spills(report: str) -> dict:
+    """``label -> (registers, spill-store bytes)`` for every kernel
+    instantiation in a ptxas report."""
+    out, current, spill = {}, None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1)
+            current, spill = m.group(1), 0
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
+        if m and current:
             spill = max(spill, int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
             label = _kernel_label(current)
             if label:
-                regs[label] = int(m.group(1))
+                out[label] = (int(m.group(1)), spill)
             current = None
+    return out
+
+
+def _ptxas_summary(report: str) -> str:
+    """``label:registers`` for every kernel instantiation in a ptxas
+    report, and the largest spill anywhere in it."""
+    regs = {label: r for label, (r, _) in _ptxas_spills(report).items()}
+    spill = max((int(x) for x in re.findall(r"(\d+) bytes spill stores", report)), default=0)
     order = sorted(regs, key=lambda k: (0, int(k[2:]), "") if k.startswith("MT") else (1, 0, k))
     return " ".join(f"{k}:{regs[k]}" for k in order) + f"; max spill {spill} B"
 
 
-def _sass_counts(source: str, defines=()) -> dict:
-    """Per kernel of a built library, the count of each SASS opcode that
-    ``cuobjdump -sass`` lists ({} without cuobjdump)."""
-    import collections
+@functools.lru_cache(maxsize=None)
+def _sass_listing(source: str, defines=()) -> dict:
+    """Per kernel of a built library, its SASS as ``cuobjdump -sass`` lists
+    it: ``[(address, opcode with modifiers, operands), ...]``."""
     import shutil
 
     from sda_tpu_torch.ops.cuda_build import _library_path
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return {}
     proc = subprocess.run([tool, "-sass", str(_library_path(source, tuple(defines)))],
                           capture_output=True, text=True, timeout=120, check=True)
-    counts, current = {}, None
-    for line in proc.stdout.splitlines():
+    return _parse_sass(proc.stdout)
+
+
+def _parse_sass(text: str) -> dict:
+    """``cuobjdump -sass`` output -> ``{kernel label: [(address, opcode,
+    operands), ...]}``."""
+    listing, current = {}, None
+    for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = _kernel_label(m.group(1))
             if current:
-                counts[current] = collections.Counter()
+                listing[current] = []
             continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
         if m and current:
-            counts[current][m.group(1)] += 1
-    return counts
+            listing[current].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return listing
+
+
+def _opcode_counts(instrs) -> collections.Counter:
+    """The count of each opcode (without modifiers) among ``instrs``."""
+    return collections.Counter(op.split(".")[0] for _, op, _ in instrs)
+
+
+def _pipe_counts(instrs) -> dict:
+    """``instrs`` split by where they execute: ``fma`` (IMAD and its forms,
+    the FMA pipe's 64 integer lanes per SM), ``alu`` (every other vector
+    integer instruction: LOP3, LEA, SHF, IADD3, ISETP, ..., the INT32 pipe's
+    64 lanes) and ``total`` (all, each one warp issue slot)."""
+    other = ("LD", "ST", "ATOM", "RED", "U", "S2", "CS2R", "BRA", "BSSY", "BSYNC", "BAR",
+             "EXIT", "NOP", "WARPSYNC", "HMMA", "IMMA", "MOVM")
+    fma = sum(1 for _, op, _ in instrs if op.startswith("IMAD"))
+    alu = sum(1 for _, op, _ in instrs if not op.startswith("IMAD") and not op.startswith(other))
+    return {"total": len(instrs), "fma": fma, "alu": alu}
+
+
+def _loops(instrs):
+    """(head, tail) addresses of every loop: each branch back to an earlier
+    (or the same) address."""
+    return [(_target(args), addr) for addr, op, args in instrs
+            if op == "BRA" and _target(args) <= addr]
+
+
+def _target(args: str) -> int:
+    """The address a branch's operands name."""
+    return int(re.search(r"0x([0-9a-f]+)", args).group(1), 16)
+
+
+def _span(instrs, head: int, tail: int):
+    return [i for i in instrs if head <= i[0] <= tail]
+
+
+def _innermost_philox_loops(instrs):
+    """The bodies of the loops that hold a Philox multiply and no other loop."""
+    loops = _loops(instrs)
+    return [_span(instrs, h, t) for h, t in loops
+            if any(PHILOX_MUL_RE.search(a) for _, _, a in _span(instrs, h, t))
+            and not any(h <= h2 and t2 <= t and (h2, t2) != (h, t) for h2, t2 in loops)]
 
 
 def _max_sm_mhz() -> float:
@@ -182,9 +273,10 @@ def _max_sm_mhz() -> float:
 
 
 def _variants() -> dict:
-    from sda_tpu_torch.ops import chacha_kernel, mxu8
+    from sda_tpu_torch.ops import chacha_kernel, mxu8, mxu_kernel, pallas_kernels
 
-    return {**mxu8.KERNEL_VARIANTS, **chacha_kernel.KERNEL_VARIANTS}
+    return {**mxu8.KERNEL_VARIANTS, **chacha_kernel.KERNEL_VARIANTS,
+            **mxu_kernel.KERNEL_VARIANTS, **pallas_kernels.KERNEL_VARIANTS}
 
 
 def phase_build():
@@ -200,9 +292,12 @@ def phase_build():
 def _reset_counts():
     from sda_tpu_torch.ops import chacha_kernel as ck
     from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.ops import mxu_kernel as m7
+    from sda_tpu_torch.ops import pallas_kernels as pk
 
     m8.mxu8_launches = m8.mxu8_chunked_launches = m8.mxu8_acc_launches = 0
     ck.chacha_keystream_launches = ck.chacha_fold_launches = 0
+    m7.mxu_fused_launches = pk.fused_planar_launches = 0
 
 
 def _chacha_counts():
@@ -214,9 +309,17 @@ def _chacha_counts():
 
 def _counts():
     from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.ops import mxu_kernel as m7
+    from sda_tpu_torch.ops import pallas_kernels as pk
 
     return {"mxu8_fused": m8.mxu8_launches, "mxu8_chunked": m8.mxu8_chunked_launches,
-            "mxu8_acc": m8.mxu8_acc_launches}
+            "mxu8_acc": m8.mxu8_acc_launches, "mxu7_fused": m7.mxu_fused_launches,
+            "planar_cios": pk.fused_planar_launches}
+
+
+def _only(**launches) -> dict:
+    """The launch counts of a run that launched exactly ``launches``."""
+    return {name: launches.get(name, 0) for name in _counts()}
 
 
 def _launch_cost(plan, nbp: int, acc: bool = False):
@@ -537,7 +640,7 @@ def phase_config3(iters: int = 20):
     out = engine.aggregate_mxu8_kernel_chunked(sec8, n_chunks, p_chunk, seed=1, lanes=lanes)
     torch.cuda.synchronize()
     counts = _counts()
-    if counts != {"mxu8_fused": 0, "mxu8_chunked": 1, "mxu8_acc": 0}:
+    if counts != _only(mxu8_chunked=1):
         raise AssertionError(f"config 3 step launched {counts}, not one B2 launch")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"config 3 output has shape {tuple(out.shape)} or limbs out of range")
@@ -592,7 +695,7 @@ def phase_config4(iters: int = 5):
     out = step(1)
     torch.cuda.synchronize()
     counts = _counts()
-    if counts != {"mxu8_fused": 2, "mxu8_chunked": 0, "mxu8_acc": n_chunks - 1}:
+    if counts != _only(mxu8_fused=2, mxu8_acc=n_chunks - 1):
         raise AssertionError(f"config 4 step launched {counts}, not B1 x 2 and B3 x 13")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"config 4 output has shape {tuple(out.shape)} or limbs out of range")
@@ -672,7 +775,7 @@ def phase_serving(iters: int = 20):
                                                  combined_randomness=combined)
         torch.cuda.synchronize()
         counts = _counts()
-        if counts != {"mxu8_fused": 1, "mxu8_chunked": 0, "mxu8_acc": 0}:
+        if counts != _only(mxu8_fused=1):
             raise AssertionError(f"serving (combined={combined}) launched {counts}, not one B1")
         if tuple(outs.shape) != (n_jobs, engine.nb, k, L):
             raise AssertionError(f"serving output has shape {tuple(outs.shape)}")
@@ -1045,6 +1148,497 @@ def phase_fullmask():
             "shape": f"{n} masks x d={D} p=2^63-871"}
 
 
+def _planar7_secrets(rows: int, nbp: int, mxu, seed: int):
+    """A participation matrix synthesised on the card in B6's planar 7-bit
+    layout; each element's top limb is masked so the element stays below
+    2^(bits(p) - 1) <= p (canonical)."""
+    import torch
+
+    L7 = mxu.L7
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    d = torch.empty((rows, nbp), dtype=torch.uint8, device=DEVICE).random_(generator=gen)
+    d &= 0x7F
+    top_bits = mxu.ctx.p.bit_length() - 1 - 7 * (L7 - 1)
+    d.view(rows // L7, L7, nbp)[:, L7 - 1] &= (1 << top_bits) - 1
+    return d.view(torch.int8)
+
+
+def _reveal7_check(engine, sec7, out, p_count: int, slots: int, width: int = 128,
+                   times: int = 1, what: str = "gen-3 headline"):
+    """B6's reveal on the first ``width`` batch positions against ``times`` x
+    the modular sum of the secret slots decoded from ``sec7`` (``slots`` per
+    participant: k in PRNG mode, k + r with the caller's randomness)."""
+    import torch
+
+    k, L7, L = engine.spec.secret_count, engine.mxu.L7, engine.ctx.L
+    d = sec7[:, :width].cpu().to(torch.int64).reshape(p_count, slots, L7, width)[:, :k]
+    value = sum(d[:, :, l] << (7 * l) for l in range(L7))  # < 2^63: exact in int64
+    x16 = torch.stack([(value >> (16 * w)) & 0xFFFF for w in range(L)], dim=-1)
+    once = engine.ctx.sum_mod(x16.permute(0, 2, 1, 3), axis=0)  # [width, k, L]
+    ref = once
+    for _ in range(times - 1):
+        ref = engine.ctx.add_mod(ref, once)
+    if not torch.equal(out[:width].cpu().to(torch.int64), ref):
+        raise AssertionError(f"{what} reveal != modular participant sum")
+
+
+def _int32_bound(ops: float, mhz: float, lanes: int = ISSUE_LANES) -> float:
+    """ms for ``ops`` 32-bit integer instructions at 132 SMs x ``lanes``
+    lanes a clock at the maximum SM clock."""
+    return ops / (SMS * lanes * mhz * 1e6) * 1e3
+
+
+def _mxu7_cost(plan, nbp: int):
+    """(bytes, int8 operations, Philox calls) that one B6 launch needs: the
+    operand, matrices and tables read once, the output written once; the
+    contraction over the operand's rows and the randomness rows the data
+    needs (8 * wpp per carry-save group, or RL per participant), into the
+    n * L7 accumulator rows (and the stage-2 product); one Philox call per
+    (lane, participant, word group)."""
+    L7 = plan.mxu.L7
+    out_bytes = (1 if plan.out7 else 4) * plan.n_out * (L7 if plan.out7 else plan.mxu.ctx.L) * nbp
+    in_bytes = (plan.rows * nbp + plan.bigs.numel() + plan.bigr.numel() + plan.big2.numel()
+                + 4 * plan.tables.numel())
+    if plan.rand_mode == "sum":
+        k_rand = plan.n_blocks * 8 * plan.words_per_p
+    else:
+        k_rand = plan.p_count * plan.RL
+    ops = 2.0 * plan.n * L7 * (plan.rows + k_rand) * nbp
+    if plan.n2:
+        ops += 2.0 * plan.n2 * L7 * plan.n * L7 * nbp
+    groups = -(-plan.words_per_p // 4)
+    calls = float(nbp) * plan.p_count * groups if plan.rand_mode != "none" else 0.0
+    return in_bytes + out_bytes, ops, calls
+
+
+def _philox_call_ops(plan) -> int:
+    """SASS instructions that B6 issues per Philox call in the plan's
+    randomness mode, from the kernel instance the plan launches: the body of
+    the innermost loop around the generator, one call per iteration. In
+    rand-sum mode that loop holds no shared-memory store (the carry-save
+    sums stay in registers); in grouped mode it stores the call's limbs."""
+    from sda_tpu_torch.ops.mxu_kernel import KERNEL_VARIANTS
+
+    if plan.rand_mode == "none":
+        return 0
+    instrs = _sass_listing(*KERNEL_VARIANTS["mxu7_fused"])[f"MT{-(-plan.n * plan.mxu.L7 // 16)}"]
+    stores = plan.rand_mode == "grouped"
+    bodies = [b for b in _innermost_philox_loops(instrs)
+              if any(op.startswith("STS") for _, op, _ in b) == stores]
+    if len(bodies) != 1:
+        raise AssertionError(f"found {len(bodies)} {plan.rand_mode}-mode Philox loops in B6's SASS")
+    return len(bodies[0])
+
+
+def _mxu7_bound(plan, nbp: int, mhz: float):
+    """B6's least time: the largest of its bytes over the HBM rate, its int8
+    operations over the tensor-core rate, and its Philox calls' SASS
+    instructions over the SMs' issue rate."""
+    nbytes, ops, calls = _mxu7_cost(plan, nbp)
+    parts = {"bytes": nbytes / PEAK_BYTES * 1e3, "int8": ops / PEAK_INT8 * 1e3,
+             "philox": _int32_bound(calls * _philox_call_ops(plan), mhz)}
+    bound = max(parts.values())
+    return bound, "bytes" if parts["bytes"] == bound else "operations", parts
+
+
+def phase_compare_mxu7(P: int = 16, P_grouped: int = 131, dimension: int = 3000):
+    """B6 on the card against its plain version on CPU copies at the mid
+    shape and the four moduli; share_mxu and the aggregate_mxu reveal on the
+    card. Returns (cases, max_abs_err, mid-shape times)."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.ops import mxu_kernel as m7
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    cases, max_err, mid = 0, 0, {}
+    for name, eng in _engines(dimension).items():
+        spec, ctx = eng.spec, eng.ctx
+        k, r, n = spec.secret_count, spec.randomness_count, spec.share_count
+        rng = np.random.default_rng(13)
+        secrets = eng.encode_secrets(rng.integers(0, min(ctx.p, 1 << 62), size=(P, dimension)))
+        ext = torch.cat([secrets, eng.random_ext(P, rng=rng)], dim=2)
+        many = eng.encode_secrets(rng.integers(0, min(ctx.p, 1 << 62), size=(P_grouped, dimension)))
+        runs = [("ext", eng.planar7_ext(ext, LANES), P, secrets),
+                ("sum", eng.planar7_secrets(secrets, LANES), P, secrets),
+                ("grouped", eng.planar7_secrets(many, LANES), P_grouped, many)]
+        for mode, sec7, p_count, plain_secrets in runs:
+            for out7, rec in ((False, None), (True, None), (False, spec.reconstruct_matrix)):
+                plans = [m7.mxu_plan(eng.mxu, spec.share_matrix, sec7.shape[0], p_count, k, r,
+                                     out7=out7, reconstruct_matrix=rec, device=device)
+                         for device in (DEVICE, "cpu")]
+                if mode != "ext" and plans[0].rand_mode != mode:
+                    raise AssertionError(f"{name} P={p_count} took {plans[0].rand_mode} mode")
+                seed = 4321 + cases
+                got = m7.run_mxu(plans[0], sec7, seed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = m7.run_mxu(plans[1], sec7.cpu(), seed)
+                plain_s = time.perf_counter() - t0
+                err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+                max_err = max(max_err, err)
+                if err:
+                    raise AssertionError(f"mxu7 kernel != plain at {name} {mode} out7={out7} "
+                                         f"rec={rec is not None}: max err {err}")
+                if rec is not None:
+                    out = m7.batched_from_planar16(got, eng.nb)
+                    if not torch.equal(out.to(torch.int64), ctx.sum_mod(plain_secrets, axis=0)):
+                        raise AssertionError(f"mxu7 reveal != modular sum at {name} {mode}")
+                if name == "p63special" and mode == "sum" and rec is not None:
+                    t = cuda_time(lambda i: m7.run_mxu(plans[0], sec7, i), iters=10, warmup=2)
+                    mid = {"kernel_ms": t.median_ms, "plain_cpu_ms": plain_s * 1e3,
+                           "shape": f"P={P} dim={dimension} NBP={sec7.shape[1]}"}
+                cases += 1
+        # the reconstruct-only call: one participant, the n clerks as slots
+        comb = eng.mxu_kernel_combined(eng.planar7_ext(ext, LANES), 0, P, LANES)
+        c7 = eng.mxu.limbs7_from_16(comb.permute(0, 2, 1)).permute(0, 2, 1)
+        c7 = c7.reshape(-1, comb.shape[-1]).contiguous()
+        plans = [m7.mxu_plan(eng.mxu, spec.reconstruct_matrix, c7.shape[0], 1, n, 0, device=d)
+                 for d in (DEVICE, "cpu")]
+        got, want = m7.run_mxu(plans[0], c7, 0), m7.run_mxu(plans[1], c7.cpu(), 0)
+        err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"mxu7 reconstruct-only kernel != plain at {name}: max err {err}")
+        cases += 1
+        # the plain-product route on the card (torch._int_mm)
+        if not torch.equal(eng.share_mxu(ext), eng.share(ext)):
+            raise AssertionError(f"share_mxu != CIOS share at {name}")
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(5)
+        if not torch.equal(eng.aggregate_mxu(secrets, gen), ctx.sum_mod(secrets, axis=0)):
+            raise AssertionError(f"aggregate_mxu reveal != modular sum at {name}")
+    return cases, max_err, mid
+
+
+def phase_gen3_headline(mhz: float, iters: int = 20):
+    """768 x 1,000,002 through aggregate_mxu_kernel: one B6 launch per
+    step, PRNG mode; then the caller-randomness layout at the same width."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops import mxu_kernel as m7
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    engine = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM).engine
+    spec, mxu = engine.spec, engine.mxu
+    k, m, L = spec.secret_count, spec.secret_count + spec.randomness_count, engine.ctx.L
+    nbp = -(-engine.nb // LANES) * LANES
+    rows = HEADLINE_P * k * mxu.L7
+    sec7 = _planar7_secrets(rows, nbp, mxu, seed=21)
+    torch.cuda.synchronize()
+
+    # the main path: one aggregation step, counted
+    _reset_counts()
+    out = engine.aggregate_mxu_kernel(sec7, 0, p_count=HEADLINE_P, lanes=LANES)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != _only(mxu7_fused=1):
+        raise AssertionError(f"the gen-3 headline step launched {counts}, not one B6 launch")
+    if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
+        raise AssertionError(f"gen-3 output has shape {tuple(out.shape)} or limbs out of range")
+    _reveal7_check(engine, sec7, out, HEADLINE_P, k)
+
+    # the plain version at the same shape, on the card, against the kernel
+    plan = engine._plan7("share", rows, HEADLINE_P, sec7.device)
+    if plan.rand_mode != "sum":
+        raise AssertionError(f"the gen-3 headline took {plan.rand_mode} randomness mode")
+    raw = m7.run_mxu(plan, sec7, 0)
+    t_plain = cuda_time(lambda i: m7._fused_share_combine_mxu_plain(plan, sec7, 0), iters=1,
+                        warmup=0)
+    plain = m7._fused_share_combine_mxu_plain(plan, sec7, 0)
+    err = int((raw.to(torch.int64) - plain.to(torch.int64)).abs().max())
+    del plain
+    if err:
+        raise AssertionError(f"gen-3 headline kernel != plain version: max err {err}")
+
+    t = cuda_time(lambda i: engine.aggregate_mxu_kernel(sec7, i, p_count=HEADLINE_P, lanes=LANES),
+                  iters=iters, warmup=3)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        engine.aggregate_mxu_kernel(sec7, i, p_count=HEADLINE_P, lanes=LANES)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    bound_ms, bound_by, parts = _mxu7_bound(plan, nbp, mhz)
+    del sec7, raw
+    torch.cuda.empty_cache()
+
+    # the caller-randomness layout: k + r slots, the PRNG unused
+    ext_rows = HEADLINE_P * m * mxu.L7
+    ext7 = _planar7_secrets(ext_rows, nbp, mxu, seed=22)
+    _reset_counts()
+    out = engine.aggregate_mxu_kernel(ext7, 0, p_count=HEADLINE_P, lanes=LANES)
+    torch.cuda.synchronize()
+    if _counts() != _only(mxu7_fused=1):
+        raise AssertionError(f"the caller-randomness step launched {_counts()}, not one B6 launch")
+    _reveal7_check(engine, ext7, out, HEADLINE_P, m, what="gen-3 caller-randomness")
+    t_ext = cuda_time(lambda i: engine.aggregate_mxu_kernel(ext7, 0, HEADLINE_P, LANES),
+                      iters=5, warmup=1)
+    ext_plan = engine._plan7("share", ext_rows, HEADLINE_P, ext7.device)
+    ext_bound_ms, ext_bound_by, _ = _mxu7_bound(ext_plan, nbp, mhz)
+    del ext7
+    torch.cuda.empty_cache()
+    return {
+        "launches": counts["mxu7_fused"], "timing": t, "plain_ms": t_plain.median_ms,
+        "max_abs_err": err, "step_ms": step_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "parts": parts, "philox_call_ops": _philox_call_ops(plan), "ext_timing": t_ext,
+        "ext_bound_ms": ext_bound_ms,
+        "ext_bound_by": ext_bound_by,
+        "shape": f"P={HEADLINE_P} dim={HEADLINE_DIM} rows={rows} NBP={nbp}",
+        "ext_shape": f"P={HEADLINE_P} rows={ext_rows} NBP={nbp}",
+    }
+
+
+def phase_gen3_streaming(mhz: float, iters: int = 5):
+    """14 chunks x 768 through aggregate_mxu_kernel_streaming: B6 per chunk,
+    the torch add_mod, B6 for the reconstruction."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    c = CONFIG4
+    engine = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM).engine
+    k, mxu = engine.spec.secret_count, engine.mxu
+    p_chunk, n_chunks = c["p_chunk"], c["n_chunks"]
+    nbp = -(-engine.nb // LANES) * LANES
+    rows = p_chunk * k * mxu.L7
+    chunk = _planar7_secrets(rows, nbp, mxu, seed=41)  # resident, re-read per chunk
+    torch.cuda.synchronize()
+
+    def step(seed0):
+        return engine.aggregate_mxu_kernel_streaming([lambda i: chunk] * n_chunks, p_chunk,
+                                                     seed0=seed0, lanes=LANES)
+
+    _reset_counts()
+    out = step(1)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != _only(mxu7_fused=n_chunks + 1):
+        raise AssertionError(f"the gen-3 streaming step launched {counts}, not B6 x 15")
+    if tuple(out.shape) != (engine.nb, k, engine.ctx.L):
+        raise AssertionError(f"gen-3 streaming output has shape {tuple(out.shape)}")
+    _reveal7_check(engine, chunk, out, p_chunk, k, times=n_chunks, what="gen-3 streaming")
+    t_step = cuda_time(lambda i: step(100 + 7919 * n_chunks * i), iters=iters, warmup=1)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        step(5000 + 7919 * n_chunks * i)
+    torch.cuda.synchronize()
+    host_step_ms = (time.perf_counter() - t0) / iters * 1e3
+    plan = engine._plan7("combine", rows, p_chunk, chunk.device)
+    rec_plan = engine._plan7("reconstruct", engine.spec.share_count * mxu.L7, 1, chunk.device)
+    t_chunk = cuda_time(lambda i: engine.mxu_kernel_combined(chunk, 30 + i, p_chunk, LANES),
+                        iters=5, warmup=1)
+    b_chunk = _mxu7_bound(plan, nbp, mhz)[0]
+    b_rec = _mxu7_bound(rec_plan, nbp, mhz)[0]
+    step_bound_ms = n_chunks * b_chunk + b_rec
+    del chunk
+    torch.cuda.empty_cache()
+    return {
+        "launches": counts["mxu7_fused"], "step": t_step, "host_step_ms": host_step_ms,
+        "chunk_timing": t_chunk, "step_bound_ms": step_bound_ms,
+        "idle_share": max(0.0, 1 - t_step.median_ms / host_step_ms),
+        "shape": f"P={n_chunks}x{p_chunk} dim={HEADLINE_DIM} rows={rows}/chunk NBP={nbp}",
+    }
+
+
+def _planar_engines(dimension: int):
+    """Engines of the planar compare: p433, the additive scheme mod
+    2^61 - 1, a generic 62-bit prime and 2^127 - 1495."""
+    from sda_tpu_torch.engine import TorchAggregationEngine
+    from sda_tpu_torch.sharing import AdditiveScheme
+
+    eng = _engines(dimension)
+    add61 = TorchAggregationEngine(
+        AdditiveScheme(share_count=4, modulus=(1 << 61) - 1).device_spec(), dimension,
+        device=DEVICE,
+    )
+    return {"p433": eng["p433"], "additive61": add61, "p62": eng["p62"],
+            "p127special": eng["p127special"]}
+
+
+def phase_compare_planar(P: int = 16, dimension: int = 3000, rows: int = 8):
+    """B7 on the card against its plain version on CPU copies at the mid
+    shape, both randomness modes. Returns (cases, max_abs_err, times)."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.ops import pallas_kernels as pk
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    cases, max_err, mid = 0, 0, {}
+    for name, eng in _planar_engines(dimension).items():
+        ctx, r = eng.ctx, eng.spec.randomness_count
+        rng = np.random.default_rng(17)
+        secrets = eng.encode_secrets(rng.integers(0, min(ctx.p, 1 << 62), size=(P, dimension)))
+        ext = torch.cat([secrets, eng.random_ext(P, rng=rng)], dim=2)
+        for mode, x in (("prng", secrets), ("ext", ext)):
+            planar = pk.planar_from_batched(x, rows)
+            seed = 77 + cases
+            got = pk.fused_share_combine_planar(ctx, planar, eng.share_mat, r, seed=seed, rows=rows)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = pk.fused_share_combine_planar(ctx, planar.cpu(), eng.share_mat.cpu(), r,
+                                                 seed=seed, rows=rows)
+            plain_s = time.perf_counter() - t0
+            err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"planar kernel != plain at {name} {mode}: max err {err}")
+            out = eng.reconstruct(pk.batched_from_planar(got, eng.nb))
+            if not torch.equal(out, ctx.sum_mod(secrets, axis=0)):
+                raise AssertionError(f"planar reveal != modular sum at {name} {mode}")
+            if name == "p62" and mode == "prng":
+                t = cuda_time(lambda i: pk.fused_share_combine_planar(
+                    ctx, planar, eng.share_mat, r, seed=i, rows=rows), iters=10, warmup=2)
+                mid = {"kernel_ms": t.median_ms, "plain_cpu_ms": plain_s * 1e3,
+                       "shape": f"P={P} dim={dimension} NBP={planar.shape[-2] * 128}"}
+            cases += 1
+    return cases, max_err, mid
+
+
+def _planar_participant_ops(L: int, slots: int, m: int) -> dict:
+    """SASS instructions that B7's L-limb instance issues per (lane,
+    participant) with every clerk active (n = 8), split as ``_pipe_counts``
+    splits them. Read from the listing: the participant loop holds the slot
+    loop, whose body branches into the arm that loads a slot (the one with
+    the global loads) or the arm that draws it (the one with the Philox
+    multiplies), then runs the clerks' CIOS products. A participant runs
+    the slot loop's common part m times, the load arm ``slots`` times, the
+    draw arm m - slots times, and the participant loop's own instructions
+    once."""
+    from sda_tpu_torch.ops.pallas_kernels import KERNEL_VARIANTS
+
+    instrs = _sass_listing(*KERNEL_VARIANTS["planar_cios"])[f"L{L}"]
+    loops = _loops(instrs)
+    slot = [(h, t) for h, t in loops
+            if any(op.startswith("LDG") for _, op, _ in _span(instrs, h, t))
+            and any(PHILOX_MUL_RE.search(a) for _, _, a in _span(instrs, h, t))]
+    slot = min(slot, key=lambda ht: ht[1] - ht[0])
+    part = min(((h, t) for h, t in loops if h < slot[0] and slot[1] < t),
+               key=lambda ht: ht[1] - ht[0])
+    body = _span(instrs, *slot)
+    # the slot test: the body's first forward branch; its fall-through arm
+    # ends in an unconditional branch to the join
+    test = next(i for i, (a, op, args) in enumerate(body) if op == "BRA" and _target(args) > a)
+    target = _target(body[test][2])
+    first = [x for x in body[test + 1:] if x[0] < target]
+    if first[-1][1] != "BRA":
+        raise AssertionError("B7's slot branch is not an if/else in the SASS")
+    join = _target(first[-1][2])
+    second = [x for x in body if target <= x[0] < join]
+    load, draw = ((first, second) if any(op.startswith("LDG") for _, op, _ in first)
+                  else (second, first))
+    if not any(PHILOX_MUL_RE.search(a) for _, _, a in draw):
+        raise AssertionError("B7's draw arm holds no Philox multiply in the SASS")
+    common = [x for x in body if x not in first and x not in second]
+    outer = [x for x in _span(instrs, *part) if x not in body]
+    pc = {name: _pipe_counts(seq) for name, seq in
+          (("common", common), ("load", load), ("draw", draw), ("outer", outer))}
+    return {key: m * pc["common"][key] + slots * pc["load"][key]
+            + (m - slots) * pc["draw"][key] + pc["outer"][key] for key in pc["common"]}
+
+
+def phase_gen1_headline(mhz: float, iters: int = 5, rows: int = 8):
+    """768 x 1,000,002 through aggregate_fused: one B7 launch and the CIOS
+    reconstruction per step; streaming over 3 chunks against one shot."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops import pallas_kernels as pk
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    engine = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM).engine
+    ctx, spec = engine.ctx, engine.spec
+    k, r, n, L = spec.secret_count, spec.randomness_count, spec.share_count, ctx.L
+    m = k + r
+
+    def limbs(p_count: int, slots: int, seed: int):
+        """``[P, nb, slots, L]`` int32 canonical limbs on the card (the top
+        limb masked below 2^(bits(p) - 1 - 48))."""
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed)
+        x = torch.empty((p_count, engine.nb, slots, L), dtype=torch.int32, device=DEVICE)
+        x.random_(0, 1 << 16, generator=gen)
+        x[..., L - 1] &= (1 << (ctx.p.bit_length() - 1 - 16 * (L - 1))) - 1
+        return x
+
+    secrets = limbs(HEADLINE_P, k, 61)
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = engine.aggregate_fused(secrets, 0, rows=rows)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != _only(planar_cios=1):
+        raise AssertionError(f"the gen-1 headline step launched {counts}, not one B7 launch")
+    if tuple(out.shape) != (engine.nb, k, L):
+        raise AssertionError(f"gen-1 output has shape {tuple(out.shape)}")
+    want = ctx.sum_mod(secrets[:, :128].to(torch.int64), axis=0)
+    if not torch.equal(out[:128].to(torch.int64), want):
+        raise AssertionError("gen-1 headline reveal != modular participant sum")
+    t_step = cuda_time(lambda i: engine.aggregate_fused(secrets, i, rows=rows), iters=3, warmup=0)
+
+    planar = pk.planar_from_batched(secrets, rows)
+    del secrets, out
+    nbp = planar.shape[-2] * 128
+    got = pk.fused_share_combine_planar(ctx, planar, engine.share_mat, r, seed=3, rows=rows)
+    table = pk._scalar_table(ctx, engine.share_mat, planar.device)
+    slice_lanes = 1024
+    sec = planar.view(HEADLINE_P, k, L, nbp)[..., :slice_lanes]
+    t_plain = cuda_time(lambda i: pk._fused_share_combine_planar_plain(
+        ctx, sec, table, k, m, n, True, 3), iters=1, warmup=0)
+    plain = pk._fused_share_combine_planar_plain(ctx, sec, table, k, m, n, True, 3)
+    err = int((got.view(n, L, nbp)[..., :slice_lanes].to(torch.int64)
+               - plain.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"gen-1 headline kernel != plain version: max err {err}")
+    t = cuda_time(lambda i: pk.fused_share_combine_planar(ctx, planar, engine.share_mat, r,
+                                                          seed=i, rows=rows),
+                  iters=iters, warmup=1)
+    del planar, got
+    torch.cuda.empty_cache()
+
+    # streaming: chunks of the caller's randomness layout against one shot
+    pc, nc = GEN1_STREAM["p_chunk"], GEN1_STREAM["chunks"]
+    ext = limbs(nc * pc, m, 62)
+    one_shot = engine.aggregate_fused_ext(ext, rows=rows)
+    _reset_counts()
+    streamed = engine.aggregate_fused_streaming([ext[i * pc : (i + 1) * pc] for i in range(nc)],
+                                                rows=rows)
+    torch.cuda.synchronize()
+    stream_counts = _counts()
+    if stream_counts != _only(planar_cios=nc):
+        raise AssertionError(f"gen-1 streaming launched {stream_counts}, not B7 x {nc}")
+    if not torch.equal(one_shot, streamed):
+        raise AssertionError("gen-1 streaming != the one-shot result")
+    if not torch.equal(streamed[:128].to(torch.int64),
+                       ctx.sum_mod(ext[:, :128, :k].to(torch.int64), axis=0)):
+        raise AssertionError("gen-1 streaming reveal != modular participant sum")
+    del ext, one_shot, streamed
+    torch.cuda.empty_cache()
+
+    if n != 8:
+        raise AssertionError(f"the gen-1 bound counts 8 active clerks, the model has {n}")
+    ops = _planar_participant_ops(L, k, m)
+    work = float(HEADLINE_P) * nbp
+    nbytes = 4.0 * (HEADLINE_P * k * L * nbp + n * L * nbp + (m + 2) * n * L + L)
+    parts = {"bytes": nbytes / PEAK_BYTES * 1e3, "issue": _int32_bound(ops["total"] * work, mhz)}
+    bound_ms = max(parts.values())
+    # where this code's instructions execute: not a bound of the function
+    pipes = {"fma": _int32_bound(ops["fma"] * work, mhz, INT32_LANES),
+             "alu": _int32_bound(ops["alu"] * work, mhz, INT32_LANES)}
+    return {
+        "launches": counts["planar_cios"], "timing": t, "step": t_step,
+        "plain_ms": t_plain.median_ms, "plain_shape": f"P={HEADLINE_P} first {slice_lanes} lanes",
+        "max_abs_err": err, "bound_ms": bound_ms,
+        "bound_by": "bytes" if parts["bytes"] == bound_ms else "operations", "parts": parts,
+        "pipes": pipes, "ops": ops, "work": work,
+        "stream_launches": stream_counts["planar_cios"],
+        "shape": f"P={HEADLINE_P} dim={HEADLINE_DIM} rows={rows} NBP={nbp}",
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1066,14 +1660,21 @@ def main() -> int:
     print(f"build: {build_s:.1f} s (nvcc, sm_90a, {len(ptxas)} variants in parallel)", flush=True)
     for variant, summary in ptxas.items():
         print(f"build: ptxas registers {variant}: {summary}", flush=True)
+    from sda_tpu_torch.ops.cuda_build import ptxas_report
+
+    variants = _variants()
+    for variant in ("mxu7_fused", "planar_cios"):
+        spills = _ptxas_spills(ptxas_report(*variants[variant]))
+        listed = " ".join(f"{k}:{regs} registers/{sp} B spilled"
+                          for k, (regs, sp) in spills.items())
+        print(f"build: ptxas spills {variant}: {listed}", flush=True)
     from sda_tpu_torch.ops.chacha_kernel import KERNEL_VARIANTS as CHACHA_VARIANTS
 
-    sass = _sass_counts(*CHACHA_VARIANTS["chacha"])
-    for kernel, ops in sass.items():
-        top = ", ".join(f"{op} {n}" for op, n in ops.most_common(6))
-        print(f"build: sass {kernel}: {sum(ops.values())} instructions ({top})", flush=True)
-    if not sass:
-        print("build: sass not listed (no cuobjdump)", flush=True)
+    sass = {**_sass_listing(*CHACHA_VARIANTS["chacha"]), **_sass_listing(*variants["planar_cios"]),
+            "MT5": _sass_listing(*variants["mxu7_fused"])["MT5"]}
+    for kernel, instrs in sass.items():
+        top = ", ".join(f"{op} {n}" for op, n in _opcode_counts(instrs).most_common(6))
+        print(f"build: sass {kernel}: {len(instrs)} instructions ({top})", flush=True)
 
     cases, cmp_err, mid = phase_compare()
     print(f"compare: {cases} kernel/plain cases bit-equal at the mid shape ({mid['shape']}): "
@@ -1180,6 +1781,59 @@ def main() -> int:
     print(f"full-mask reveal: {fm['shape']} on {card}: FullMasker.combine on the card "
           f"{fm['device_ms']:.4f} ms on the host clock, equal to the host fold "
           f"({fm['host_ms']:.4f} ms)", flush=True)
+
+    cases7, err7, mid7 = phase_compare_mxu7()
+    print(f"mxu7 compare: {cases7} kernel/plain cases bit-equal at the mid shape "
+          f"({mid7['shape']}; caller randomness, rand-sum P=16, grouped P=131; combined, out7, "
+          f"fused reconstruction; reconstruct-only) at 4 moduli; share_mxu == CIOS share and "
+          f"the aggregate_mxu reveal exact on the card; kernel {mid7['kernel_ms']:.4f} ms, "
+          f"plain (CPU) {mid7['plain_cpu_ms']:.1f} ms", flush=True)
+    g3 = phase_gen3_headline(mhz)
+    t6 = g3["timing"]
+    pp = g3["parts"]
+    print(f"gen-3 headline: {g3['shape']} on {card}: one B6 launch, median {t6.median_ms:.4f} ms "
+          f"(min {t6.min_ms:.4f}, max {t6.max_ms:.4f}, {len(t6.samples_ms)} steps), "
+          f"{HEADLINE_P / (t6.median_ms / 1e3):.0f} aggregations/s; bound {g3['bound_ms']:.4f} ms "
+          f"({g3['bound_by']}: bytes {pp['bytes']:.4f}, int8 {pp['int8']:.4f}, Philox issue "
+          f"{pp['philox']:.4f} at {g3['philox_call_ops']} SASS instructions per call); plain on "
+          f"card {g3['plain_ms']:.1f} ms; reveal exact", flush=True)
+    te = g3["ext_timing"]
+    print(f"gen-3 headline: back-to-back step {g3['step_ms']:.4f} ms on the host clock (device "
+          f"idle share {max(0.0, 1 - t6.median_ms / g3['step_ms']):.4f}); caller randomness "
+          f"{g3['ext_shape']}: one launch, median {te.median_ms:.4f} ms (min {te.min_ms:.4f}, "
+          f"max {te.max_ms:.4f}), bound {g3['ext_bound_ms']:.4f} ms ({g3['ext_bound_by']}), "
+          f"reveal exact", flush=True)
+    s3 = phase_gen3_streaming(mhz)
+    ts3 = s3["step"]
+    total3s = CONFIG4["n_chunks"] * CONFIG4["p_chunk"]
+    print(f"gen-3 streaming: {s3['shape']} on {card}: B6 x {s3['launches']}, step median "
+          f"{ts3.median_ms:.4f} ms (min {ts3.min_ms:.4f}, max {ts3.max_ms:.4f}, "
+          f"{len(ts3.samples_ms)} steps, events), {total3s / (ts3.median_ms / 1e3):.0f} "
+          f"aggregations/s; step bound {s3['step_bound_ms']:.4f} ms; chunk launch "
+          f"{s3['chunk_timing'].median_ms:.4f} ms; back-to-back step {s3['host_step_ms']:.4f} ms "
+          f"on the host clock (device idle share {s3['idle_share']:.4f}); reveal exact",
+          flush=True)
+    casesp, errp, midp = phase_compare_planar()
+    print(f"planar compare: {casesp} kernel/plain cases bit-equal at the mid shape "
+          f"({midp['shape']}; PRNG and caller randomness at p433, additive 2^61-1, p62, "
+          f"2^127-1495), reveals exact; kernel {midp['kernel_ms']:.4f} ms, plain (CPU) "
+          f"{midp['plain_cpu_ms']:.1f} ms", flush=True)
+    g1 = phase_gen1_headline(mhz)
+    t7 = g1["timing"]
+    p1 = g1["parts"]
+    print(f"gen-1 headline: {g1['shape']} on {card}: one B7 launch per step, launch median "
+          f"{t7.median_ms:.4f} ms (min {t7.min_ms:.4f}, max {t7.max_ms:.4f}), step "
+          f"(B7 + planar copy + CIOS reconstruct) {g1['step'].median_ms:.4f} ms; bound "
+          f"{g1['bound_ms']:.4f} ms ({g1['bound_by']}: issue {p1['issue']:.4f} for "
+          f"{g1['ops']['total']} SASS instructions per lane and participant, "
+          f"{g1['ops']['total'] * g1['work']:.4g} in all; bytes {p1['bytes']:.4f}); of them "
+          f"{g1['ops']['fma']} on the FMA pipe ({g1['pipes']['fma']:.4f} ms at "
+          f"{INT32_LANES} lanes), {g1['ops']['alu']} on the INT32 pipe "
+          f"({g1['pipes']['alu']:.4f} ms at {INT32_LANES} lanes); plain on card "
+          f"{g1['plain_ms']:.1f} ms ({g1['plain_shape']}); reveal exact", flush=True)
+    print(f"gen-1 streaming: {GEN1_STREAM['chunks']} chunks x {GEN1_STREAM['p_chunk']} "
+          f"participants x {HEADLINE_DIM}, caller randomness: B7 x {g1['stream_launches']}, "
+          f"equal to the one-shot aggregate_fused_ext, reveal exact", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -1290,6 +1944,59 @@ def main() -> int:
             "combine_host_ms": hm[1],
             "seeds_per_s": CHACHA["seeds"] / (hm[1] / 1e3),
             "fullmask_device_ms": fm["device_ms"],
+        },
+        {
+            "name": "mxu7_fused",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/mxu7.cu",
+            "replaces": "sda_tpu/ops/mxu_kernel.py:261",
+            "launches": g3["launches"],
+            "max_abs_err": max(err7, g3["max_abs_err"]),
+            "ms": t6.median_ms,
+            "min_ms": t6.min_ms,
+            "max_ms": t6.max_ms,
+            "plain_ms": g3["plain_ms"],
+            "bound_ms": g3["bound_ms"],
+            "bound_by": g3["bound_by"],
+            "bound_parts_ms": g3["parts"],
+            "philox_call_sass": g3["philox_call_ops"],
+            "sm_mhz": mhz,
+            "library_ms": None,
+            "shape": g3["shape"],
+            "step_ms": g3["step_ms"],
+            "ext_ms": te.median_ms,
+            "ext_shape": g3["ext_shape"],
+            "mid_kernel_ms": mid7["kernel_ms"],
+            "mid_plain_cpu_ms": mid7["plain_cpu_ms"],
+            "launches_streaming": s3["launches"],
+            "streaming_step_ms": ts3.median_ms,
+            "streaming_host_step_ms": s3["host_step_ms"],
+            "streaming_step_bound_ms": s3["step_bound_ms"],
+        },
+        {
+            "name": "planar_cios",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/planar_cios.cu",
+            "replaces": "sda_tpu/ops/pallas_kernels.py:83",
+            "launches": g1["launches"],
+            "max_abs_err": max(errp, g1["max_abs_err"]),
+            "ms": t7.median_ms,
+            "min_ms": t7.min_ms,
+            "max_ms": t7.max_ms,
+            "plain_ms": g1["plain_ms"],
+            "plain_shape": g1["plain_shape"],
+            "bound_ms": g1["bound_ms"],
+            "bound_by": g1["bound_by"],
+            "bound_parts_ms": g1["parts"],
+            "sass_per_lane_participant": g1["ops"],
+            "pipe_ms": g1["pipes"],
+            "sm_mhz": mhz,
+            "library_ms": None,
+            "shape": g1["shape"],
+            "step_ms": g1["step"].median_ms,
+            "mid_kernel_ms": midp["kernel_ms"],
+            "mid_plain_cpu_ms": midp["plain_cpu_ms"],
+            "launches_streaming": g1["stream_launches"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

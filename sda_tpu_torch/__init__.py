@@ -12,9 +12,9 @@ Layer map (bottom-up):
 - :mod:`sda_tpu_torch.sharing`  additive & packed-Shamir schemes and their
   device spec
 - :mod:`sda_tpu_torch.chacha`   rand-0.3 ChaCha streams (host oracle, numpy)
-- :mod:`sda_tpu_torch.ops`      limb arithmetic, the CIOS modmat, the
-  byte-limb fused kernel and the ChaCha mask kernels (CUDA C++ under
-  ``ops/csrc``)
+- :mod:`sda_tpu_torch.ops`      limb arithmetic, the CIOS and 7-bit
+  modmats, the fused kernels of generations 1, 3 and 4 and the ChaCha mask
+  kernels (CUDA C++ under ``ops/csrc``)
 - :mod:`sda_tpu_torch.engine`   the bulk aggregation executor and
   ``device_combine``
 - :mod:`sda_tpu_torch.routing`  measured host-vs-device route decisions

@@ -1,27 +1,39 @@
 """The bulk secure-aggregation executor, on PyTorch tensors.
 
-Port of the reference package's ``engine.py`` (main-path half). The
-pipeline mirrors the protocol's call stacks with the host/device boundary
-drawn at the field math:
+Port of the reference package's ``engine.py``. The pipeline mirrors the
+protocol's call stacks with the host/device boundary drawn at the field
+math:
 
 - participant side: share generation (the per-participant NTT pipeline
   folded into one modular matmul);
 - clerk side: the combine (modular sum over participants);
 - recipient side: reconstruction (inverse transform matmul).
 
-Two routes compute it. The plain CIOS route (``share`` / ``combine`` /
-``reconstruct`` / ``aggregate``) is limb-tensor code on any device. The
-byte-limb route runs share generation with in-kernel randomness, the
-combine and the reconstruction in the hand-written CUDA kernels of
-:mod:`sda_tpu_torch.ops.mxu8` — on a CPU tensor, in their plain version:
+Four kernel generations compute it. The plain CIOS route (``share`` /
+``combine`` / ``reconstruct`` / ``aggregate``) is limb-tensor code on any
+device. The kernel routes run share generation with in-kernel randomness,
+the combine and (mostly) the reconstruction in hand-written CUDA kernels —
+on a CPU tensor, in their plain versions:
 
-- ``aggregate_mxu8_kernel``: one participant chunk, one launch (B1);
-- ``aggregate_mxu8_kernel_chunked``: stacked chunks, one launch (B2);
-- ``aggregate_mxu8_kernel_streaming``: chunks from the host, one launch
-  each onto one running accumulator (B1, then B3), then
-  ``reconstruct_planar8`` (B1);
-- ``concat_jobs_lanes`` + ``aggregate_mxu8_kernel_jobs``: many same-shape
-  small jobs side by side on the lane axis, one launch (B1).
+- gen 1, CIOS on planar u32 tiles (:mod:`sda_tpu_torch.ops.pallas_kernels`,
+  B7): ``aggregate_fused``, ``aggregate_fused_ext`` and
+  ``aggregate_fused_streaming``, each followed by the CIOS ``reconstruct``;
+- gen 3, 7-bit int8 limbs (:mod:`sda_tpu_torch.ops.mxu_kernel`, B6):
+  ``aggregate_mxu_kernel`` (one launch with fused reconstruction),
+  ``mxu_kernel_combined`` and ``aggregate_mxu_kernel_streaming`` (one launch
+  per chunk, a torch ``add_mod``, one reconstruction launch); beside them
+  the plain-product route of :mod:`sda_tpu_torch.ops.mxu` (``aggregate_mxu``,
+  ``aggregate_mxu_ext``, ``aggregate_mxu_streaming``, ``share_mxu``), whose
+  int8 matmul is ``torch._int_mm`` on the card;
+- gen 4, byte limbs (:mod:`sda_tpu_torch.ops.mxu8`):
+
+  - ``aggregate_mxu8_kernel``: one participant chunk, one launch (B1);
+  - ``aggregate_mxu8_kernel_chunked``: stacked chunks, one launch (B2);
+  - ``aggregate_mxu8_kernel_streaming``: chunks from the host, one launch
+    each onto one running accumulator (B1, then B3), then
+    ``reconstruct_planar8`` (B1);
+  - ``concat_jobs_lanes`` + ``aggregate_mxu8_kernel_jobs``: many same-shape
+    small jobs side by side on the lane axis, one launch (B1).
 
 :func:`device_combine` is the bulk modular sum of many int64 vectors (the
 clerk combine, and the Full-mask reveal of :mod:`sda_tpu_torch.masking`)
@@ -38,12 +50,24 @@ import torch
 from sda_tpu_torch.fields import PrimeField
 from sda_tpu_torch.ops.limbs import LimbContext, limbs_from_numpy
 from sda_tpu_torch.ops.modmat import combine, modmat, uniform_limbs
+from sda_tpu_torch.ops.mxu import MxuContext, mxu_modmat
+from sda_tpu_torch.ops.mxu_kernel import (
+    batched_from_planar16,
+    mxu_plan,
+    planar7_from_batched,
+    run_mxu,
+)
 from sda_tpu_torch.ops.mxu8 import (
     Mxu8Context,
     batched_from_planar_lm,
     mxu8_plan,
     planar8_from_batched,
     run_mxu8,
+)
+from sda_tpu_torch.ops.pallas_kernels import (
+    batched_from_planar,
+    fused_share_combine_planar,
+    planar_from_batched,
 )
 from sda_tpu_torch.sharing import DeviceSchemeSpec
 
@@ -172,10 +196,21 @@ class TorchAggregationEngine:
         # Montgomery-form matrices on the device; mont_mul(normal, mont) = product
         self.share_mat = self.ctx.encode_mont(spec.share_matrix, self.device)
         self.rec_mat = self.ctx.encode_mont(spec.reconstruct_matrix, self.device)
-        # byte-limb kernel path: odd moduli wider than 7 bits
+        # 7-bit and byte-limb kernel paths: odd moduli wider than 7 bits
+        self.mxu: MxuContext | None = None
         self.mxu8: Mxu8Context | None = None
         if spec.modulus % 2 == 1 and spec.modulus.bit_length() > 7:
+            self.mxu = MxuContext.create(self.ctx)
             self.mxu8 = Mxu8Context.create(self.ctx)
+            L7, k, r = self.mxu.L7, spec.secret_count, spec.randomness_count
+            # raw double-width randomness slots (PRNG) and canonical slots
+            self._slots_raw = [L7] * k + [2 * L7] * r
+            self._slots_can = [L7] * (k + r)
+            self._big_raw = self.mxu.matrix_int8(spec.share_matrix, self._slots_raw)
+            self._big_can = self.mxu.matrix_int8(spec.share_matrix, self._slots_can)
+            self._cols_raw = self.mxu.out_cols(self._slots_raw)
+            self._cols_can = self.mxu.out_cols(self._slots_can)
+        self._big_tiles: dict = {}
         self._plans: dict = {}
 
     # ---------------------------------------------------- CIOS limb path
@@ -201,6 +236,192 @@ class TorchAggregationEngine:
             self.ctx, generator, tuple(secrets.shape[:2]) + (self.spec.randomness_count,)
         )
         return self.aggregate(secrets, rand)
+
+    # ------------------------------------------ gen-1 CIOS planar kernel (B7)
+
+    def _fused_combined(self, x, seed, rows: int):
+        """One participant chunk ``[P, nb, slots, L]`` through B7 -> the
+        per-clerk combined shares ``[nb, n, L]``. ``slots == k`` draws the
+        randomness in the kernel from ``seed``; ``k + r`` slots carry the
+        caller's."""
+        planar = planar_from_batched(x, rows)
+        out = fused_share_combine_planar(
+            self.ctx, planar, self.share_mat, self.spec.randomness_count,
+            seed=int(seed), rows=rows,
+        )
+        return batched_from_planar(out, self.nb)
+
+    def aggregate_fused(self, secrets, seed, rows: int = 8):
+        """Share + combine in one B7 launch (randomness drawn in the kernel),
+        then the CIOS reconstruction. ``secrets`` ``[P, nb, k, L]``."""
+        return self.reconstruct(self._fused_combined(secrets, seed, rows))
+
+    def aggregate_fused_ext(self, ext, rows: int = 8):
+        """B7 with the caller's (host-CSPRNG) randomness: ``ext`` ``[P, nb,
+        k + r, L]``; then the CIOS reconstruction."""
+        return self.reconstruct(self._fused_combined(ext, 0, rows))
+
+    def aggregate_fused_streaming(self, chunks, seed0: int = 0, rows: int = 8):
+        """Participant streaming: ``chunks`` yields ``[P_chunk, nb, slots, L]``
+        tensors (or callables ``f(i)``); chunk ``i`` runs B7 with seed
+        ``seed0 + i``, the per-clerk sums add mod p across chunks, and the
+        CIOS reconstruction reveals."""
+        acc = None
+        for i, chunk in enumerate(chunks):
+            x = chunk(i) if callable(chunk) else chunk
+            part = self._fused_combined(x, seed0 + i, rows)
+            acc = part if acc is None else self.ctx.add_mod(acc, part)
+        if acc is None:
+            raise ValueError("aggregate_fused_streaming requires at least one chunk")
+        return self.reconstruct(acc)
+
+    # ---------------------------------------------- gen-3 7-bit int8 path
+
+    def _require_mxu(self) -> MxuContext:
+        if self.mxu is None:
+            raise ValueError("the 7-bit path needs an odd modulus wider than 7 bits")
+        return self.mxu
+
+    def _tiled_big(self, kind: str, p_count: int, device) -> torch.Tensor:
+        """The slot matrix tiled ``p_count`` times along its rows, cached on
+        ``device``: ``kind`` ``"raw"`` (PRNG) or ``"can"`` (caller)."""
+        key = (kind, p_count, device)
+        got = self._big_tiles.get(key)
+        if got is None:
+            one = self._big_raw if kind == "raw" else self._big_can
+            got = torch.from_numpy(np.concatenate([one] * p_count, axis=0)).to(device)
+            self._big_tiles[key] = got
+        return got
+
+    def mxu_combined_from_key(self, secrets, generator: torch.Generator):
+        """``[P, nb, k, L]`` secrets -> per-clerk combined shares ``[nb, n,
+        L]``: raw double-width randomness from ``generator`` (on the
+        secrets' device), one int8 matmul, the carry/Montgomery epilogue."""
+        mxu, spec = self._require_mxu(), self.spec
+        P, k, r, L7 = secrets.shape[0], spec.secret_count, spec.randomness_count, mxu.L7
+        big = self._tiled_big("raw", P, secrets.device)
+        s7 = mxu.limbs7_from_16(secrets).reshape(P, self.nb, k * L7)
+        bits = torch.randint(0, 1 << 32, (P, self.nb, r, mxu.raw_words), dtype=torch.int64,
+                             generator=generator, device=secrets.device)
+        r7 = mxu.raw_limbs(bits).reshape(P, self.nb, r * 2 * L7)
+        ext = torch.cat([s7, r7], dim=-1)  # [P, nb, S]
+        extT = ext.permute(1, 0, 2).reshape(self.nb, -1)
+        return mxu_modmat(mxu, extT, big, spec.share_count, self._cols_raw)
+
+    def _mxu_combined_ext(self, ext):
+        mxu, spec = self._require_mxu(), self.spec
+        P = ext.shape[0]
+        e7 = mxu.limbs7_from_16(ext).reshape(P, self.nb, -1)
+        extT = e7.permute(1, 0, 2).reshape(self.nb, -1)
+        big = self._tiled_big("can", P, ext.device)
+        return mxu_modmat(mxu, extT, big, spec.share_count, self._cols_can)
+
+    def aggregate_mxu(self, secrets, generator: torch.Generator):
+        """Share + combine as one int8 matmul, then the CIOS reconstruction.
+        Sharing randomness is drawn double-width raw (bias <= 2^-(7*L7));
+        the protocol path with host-CSPRNG randomness is
+        :meth:`aggregate_mxu_ext`."""
+        return self.reconstruct(self.mxu_combined_from_key(secrets, generator))
+
+    def aggregate_mxu_ext(self, ext):
+        """:meth:`aggregate_mxu` with the caller's canonical randomness:
+        ``ext`` ``[P, nb, k + r, L]``."""
+        return self.reconstruct(self._mxu_combined_ext(ext))
+
+    def aggregate_mxu_streaming(self, chunks, generator: torch.Generator):
+        """Participant streaming on the int8 matmul: per-chunk combined sums
+        add mod p across chunks (each chunk draws its randomness from
+        ``generator`` in turn)."""
+        acc = None
+        for i, chunk in enumerate(chunks):
+            x = chunk(i) if callable(chunk) else chunk
+            part = self.mxu_combined_from_key(x, generator)
+            acc = part if acc is None else self.ctx.add_mod(acc, part)
+        if acc is None:
+            raise ValueError("aggregate_mxu_streaming requires at least one chunk")
+        return self.reconstruct(acc)
+
+    def share_mxu(self, ext):
+        """Per-participant canonical shares on the int8 matmul (the
+        protocol's bulk path: each participant's shares are encrypted and
+        uploaded separately). ``ext`` ``[P, nb, k + r, L] -> [P, nb, n, L]``."""
+        mxu, spec = self._require_mxu(), self.spec
+        P = ext.shape[0]
+        e7 = mxu.limbs7_from_16(ext).reshape(P * self.nb, -1)
+        big = self._tiled_big("can", 1, ext.device)
+        out = mxu_modmat(mxu, e7, big, spec.share_count, self._cols_can)
+        return out.reshape(P, self.nb, spec.share_count, self.ctx.L)
+
+    def planar7_secrets(self, secrets, lanes: int = 1024):
+        """``[P, nb, k, L] -> [P*k*L7, NBP]`` int8 planar 7-bit limbs."""
+        return planar7_from_batched(self._require_mxu(), secrets, lanes)
+
+    def planar7_ext(self, ext, lanes: int = 1024):
+        """Caller-randomness layout: ``[P, nb, k+r, L] -> [P*(k+r)*L7, NBP]``."""
+        return planar7_from_batched(self._require_mxu(), ext, lanes)
+
+    def _plan7(self, matrix: str, rows: int, p_count: int, device):
+        """The cached B6 plan: ``matrix`` ``"share"`` (share + combine with
+        fused reconstruction), ``"combine"`` or ``"reconstruct"``."""
+        key = ("mxu7", matrix, rows, p_count, device)
+        plan = self._plans.get(key)
+        if plan is None:
+            mxu, spec = self._require_mxu(), self.spec
+            if matrix == "reconstruct":
+                # the same modular matmul: p_count=1, slots=n, no randomness
+                plan = mxu_plan(mxu, spec.reconstruct_matrix, rows, 1, spec.share_count, 0,
+                                device=device)
+            else:
+                plan = mxu_plan(
+                    mxu, spec.share_matrix, rows, p_count, spec.secret_count,
+                    spec.randomness_count,
+                    reconstruct_matrix=spec.reconstruct_matrix if matrix == "share" else None,
+                    device=device,
+                )
+            self._plans[key] = plan
+        return plan
+
+    def aggregate_mxu_kernel(self, sec7, seed, p_count: int, lanes: int = 1024):
+        """Share + combine + reconstruct in ONE launch of B6; ``sec7`` from
+        :meth:`planar7_secrets` (or :meth:`planar7_ext`); returns ``[nb, k,
+        L]`` int32 limbs."""
+        plan = self._plan7("share", sec7.shape[0], p_count, sec7.device)
+        return batched_from_planar16(run_mxu(plan, sec7, seed, lanes=lanes), self.nb)
+
+    def mxu_kernel_combined(self, sec7, seed, p_count: int, lanes: int = 1024):
+        """The same launch without reconstruction: per-clerk combined
+        shares, ``[n, L, NBP]``."""
+        plan = self._plan7("combine", sec7.shape[0], p_count, sec7.device)
+        return run_mxu(plan, sec7, seed, lanes=lanes)
+
+    def _reconstruct_planar16(self, comb16, lanes: int):
+        """``[n, L, NBP]`` canonical combined shares -> ``[nb, k, L]`` through
+        one B6 launch with one "participant", the n clerks as slots and no
+        randomness."""
+        mxu = self._require_mxu()
+        c7 = mxu.limbs7_from_16(comb16.permute(0, 2, 1))  # [n, NBP, L7]
+        c7 = c7.permute(0, 2, 1).reshape(-1, comb16.shape[-1]).contiguous()
+        plan = self._plan7("reconstruct", c7.shape[0], 1, c7.device)
+        return batched_from_planar16(run_mxu(plan, c7, 0, lanes=lanes), self.nb)
+
+    def aggregate_mxu_kernel_streaming(self, chunks, p_chunk: int, seed0: int = 0,
+                                       lanes: int = 1024):
+        """Past one launch's participant bound: ``chunks`` yields
+        ``[p_chunk*k*L7, NBP]`` planar tensors (or callables ``f(i)``). Chunk
+        ``i`` runs B6 without reconstruction at seed ``seed0 + 7919*i``, the
+        canonical per-clerk sums add mod p (torch code), and one more B6
+        launch reconstructs."""
+        acc = None
+        for i, chunk in enumerate(chunks):
+            sec7 = chunk(i) if callable(chunk) else chunk
+            part = self.mxu_kernel_combined(sec7, seed0 + 7919 * i, p_chunk, lanes)
+            if acc is None:
+                acc = part
+            else:  # int32 lanes hold every step of the canonical add exactly
+                acc = torch.stack(self.ctx.add_mod_lanes(acc.unbind(1), part.unbind(1)), dim=1)
+        if acc is None:
+            raise ValueError("aggregate_mxu_kernel_streaming requires at least one chunk")
+        return self._reconstruct_planar16(acc, lanes)
 
     # --------------------------------------------- byte-limb kernel path
 

@@ -4,6 +4,14 @@
   int64 tensors.
 - :mod:`sda_tpu_torch.ops.modmat` — batched modular matmul / combine built
   on limbs.
+- :mod:`sda_tpu_torch.ops.mxu`    — the 7-bit int8 modmat (one integer
+  matrix product and a carry/Montgomery epilogue).
+- :mod:`sda_tpu_torch.ops.mxu_kernel` — the 7-bit fused share + combine
+  (+ reconstruct), kernel generation 3: a hand-written CUDA kernel and its
+  plain version.
+- :mod:`sda_tpu_torch.ops.pallas_kernels` — the CIOS fused share + combine
+  on planar tiles, kernel generation 1 (the reference's module name): a
+  hand-written CUDA kernel and its plain version.
 - :mod:`sda_tpu_torch.ops.mxu8`   — the byte-limb fused share + combine
   (+ reconstruct): a hand-written CUDA kernel and its plain version.
 - :mod:`sda_tpu_torch.ops.chacha_kernel` — the ChaCha mask expansion and

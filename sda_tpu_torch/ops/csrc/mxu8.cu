@@ -40,7 +40,7 @@
 //     contiguous), and sec's tile, which is lane-contiguous in device memory,
 //     is transposed to K-contiguous while it is staged (4x4 byte transposes
 //     with __byte_perm), so the 6 GB operand is never transposed in memory.
-//   * Randomness: Philox4x32-10 written here, one stream per
+//   * Randomness: Philox4x32-10 (sda_common.cuh), one stream per
 //     (lane, participant draw, word group): key = (seed, 0), counter =
 //     (global lane, draw, word group, 0); output word q of a call is PRNG
 //     word 4 * group + q of that (lane, draw). Per word: accR += w,
@@ -68,13 +68,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sda_common.cuh"
+
 namespace {
 
-constexpr int kT = 128;        // lanes per block
-constexpr int kThreads = 256;  // 8 warps x 16 lanes
-constexpr int kKT = 64;        // K rows per staged tile
-constexpr int kSA = kKT + 16;  // sA row stride in bytes (== 16 mod 32: conflict-free fragments)
-constexpr int kMaxL = 8;       // 16-bit limbs per element (128-bit moduli)
+using namespace sda;  // Philox, limb arithmetic, the int8 MMA pipeline (kT, kThreads, kKT, kSA)
+
 constexpr int kMaxB = 32;      // bytes per chain (L8 + residual limbs)
 constexpr int kMaxW = 16;      // 16-bit lanes regrouped from a chain
 constexpr int kMaxMT = 12;     // m16 tiles of output rows (n * L8 + 1 <= 192)
@@ -121,25 +120,6 @@ struct Params {
   uint32_t seed_stride;  // chunk c draws with key seed + c * seed_stride (B2)
 };
 
-// ----------------------------------------------------------------- Philox
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
-
 __device__ __forceinline__ uint32_t byte_of(uint32_t x, int c) {
   return c < 4 ? (x >> (8 * c)) & 0xFFu : 0u;
 }
@@ -148,62 +128,7 @@ __device__ __forceinline__ uint32_t shl32(uint32_t x, int s) {
   return s >= 32 ? 0u : x << s;
 }
 
-// ------------------------------------------------------- limb arithmetic
-
-// Subtract p if (carry, s) >= p (s: L lanes of 16 bits).
-__device__ void cond_sub(uint32_t* s, uint32_t carry, const uint32_t* pl, int L) {
-  uint32_t d[kMaxL];
-  uint32_t borrow = 0;
-  for (int j = 0; j < L; ++j) {
-    const uint32_t t = s[j] - pl[j] - borrow;
-    d[j] = t & 0xFFFFu;
-    borrow = (t >> 16) & 1u;
-  }
-  if (carry > 0 || borrow == 0)
-    for (int j = 0; j < L; ++j) s[j] = d[j];
-}
-
-__device__ void add_mod(uint32_t* a, const uint32_t* b, const uint32_t* pl, int L) {
-  uint32_t carry = 0;
-  for (int j = 0; j < L; ++j) {
-    const uint32_t t = a[j] + b[j] + carry;
-    a[j] = t & 0xFFFFu;
-    carry = t >> 16;
-  }
-  cond_sub(a, carry, pl, L);
-}
-
-// CIOS Montgomery product a * b * 2^(-16L) mod p; every step fits uint32.
-__device__ void mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                         const uint32_t* pl, uint32_t p_inv_w, int L) {
-  uint32_t T[kMaxL + 2];
-  for (int j = 0; j < L + 2; ++j) T[j] = 0;
-  for (int i = 0; i < L; ++i) {
-    uint32_t c = 0, t;
-    for (int j = 0; j < L; ++j) {
-      t = T[j] + a[i] * b[j] + c;
-      T[j] = t & 0xFFFFu;
-      c = t >> 16;
-    }
-    t = T[L] + c;
-    T[L] = t & 0xFFFFu;
-    T[L + 1] += t >> 16;
-    const uint32_t mq = (T[0] * p_inv_w) & 0xFFFFu;
-    t = T[0] + mq * pl[0];
-    c = t >> 16;
-    for (int j = 1; j < L; ++j) {
-      t = T[j] + mq * pl[j] + c;
-      T[j - 1] = t & 0xFFFFu;
-      c = t >> 16;
-    }
-    t = T[L] + c;
-    T[L - 1] = t & 0xFFFFu;
-    T[L] = T[L + 1] + (t >> 16);
-    T[L + 1] = 0;
-  }
-  cond_sub(T, T[L], pl, L);
-  for (int j = 0; j < L; ++j) out[j] = T[j];
-}
+// ------------------------------------------------------------ folds
 
 // Pseudo-Mersenne canonicalisation (p = 2^e - c): byte limbs -> L lanes.
 __device__ void fold_special(const uint32_t* bytes, int nb, const Params& p,
@@ -301,92 +226,6 @@ __device__ void fold_and_emit(const uint32_t* bytes, int nb, const Params& p,
   }
   for (int l = 0; l < p.L; ++l)
     out[(size_t)(l * n_out + i) * p.nbp + gl] = (int32_t)res[l];
-}
-
-// --------------------------------------------------------------- staging
-
-// A tile: rows [0, rows) x columns [col0, col0 + kKT) of a row-major int8
-// matrix with lda columns (lda, col0 multiples of 4); zero outside.
-__device__ void load_a_tile(int8_t* sA, const int8_t* A, int lda, int nrows, int rows,
-                            int col0, int tid) {
-  constexpr int kWords = kKT / 4;
-  for (int idx = tid; idx < rows * kWords; idx += kThreads) {
-    const int r = idx / kWords, q = idx % kWords, col = col0 + 4 * q;
-    uint32_t w = 0;
-    if (r < nrows && col < lda) w = *reinterpret_cast<const uint32_t*>(A + (size_t)r * lda + col);
-    *reinterpret_cast<uint32_t*>(sA + r * kSA + 4 * q) = w;
-  }
-}
-
-// B tile: sec rows [k0, k0 + kKT) x lanes [lane0, lane0 + kT), stored
-// transposed (sB[lane][k], row stride sb bytes) with 4x4 byte transposes.
-__device__ void load_b_tile(int8_t* sB, int sb, const int8_t* sec, int K, int nbp, int k0,
-                            int lane0, int tid) {
-  const bool vec = (nbp & 3) == 0;
-  for (int idx = tid; idx < (kKT / 4) * (kT / 4); idx += kThreads) {
-    // a warp covers 8 lane quads x 4 k quads: 32-byte sectors per row
-    const int lq = (idx & 7) + 8 * ((idx >> 5) & 3);
-    const int kq = ((idx >> 3) & 3) + 4 * (idx >> 7);
-    const int lane = lane0 + 4 * lq;
-    uint32_t r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * kq + j;
-      r[j] = 0;
-      if (k < K) {
-        const int8_t* row = sec + (size_t)k * nbp;
-        if (vec && lane + 3 < nbp) {
-          r[j] = *reinterpret_cast<const uint32_t*>(row + lane);
-        } else {
-          for (int b = 0; b < 4; ++b)
-            if (lane + b < nbp) r[j] |= (uint32_t)(uint8_t)row[lane + b] << (8 * b);
-        }
-      }
-    }
-    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(sB + (4 * lq) * sb + 4 * kq);
-    const int sw = sb / 4;
-    dst[0] = __byte_perm(t0, t2, 0x5410);
-    dst[sw] = __byte_perm(t0, t2, 0x7632);
-    dst[2 * sw] = __byte_perm(t1, t3, 0x5410);
-    dst[3 * sw] = __byte_perm(t1, t3, 0x7632);
-  }
-}
-
-__device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[mt][nt] += sA[mt tile] . sB[warp's nt tile], over ksteps steps of 32.
-template <int MT>
-__device__ __forceinline__ void mma_chunk(int (&acc)[MT][2][4], const int8_t* sA, const int8_t* sB,
-                                          int sb, int boff, int ksteps, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t b[2][2];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int8_t* bp = sB + (warp * 16 + nt * 8 + g) * sb + boff + ks * 32 + 4 * t;
-      b[nt][0] = *reinterpret_cast<const uint32_t*>(bp);
-      b[nt][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int8_t* ap = sA + (mt * 16 + g) * kSA + ks * 32 + 4 * t;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * kSA);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 16);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * kSA + 16);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) mma_s8(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
-    }
-  }
 }
 
 // ------------------------------------------------------------------ kernel

@@ -3,7 +3,8 @@
 Each kernel source under ``sda_tpu_torch/ops/csrc/`` has a plain C entry
 point. On first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the repository root (named by the hash of the source,
-its defines and the flags, so an edited source rebuilds) and loaded with
+the shared headers ``csrc/*.cuh``, its defines and the flags, so an edited
+source or header rebuilds) and loaded with
 :mod:`ctypes`. One source may be built as several variants, each with its
 own ``-D`` defines and its own library. ptxas's report (registers, shared
 memory and spills of every kernel) is kept beside each library as
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 def _library_path(source: str, defines: tuple[str, ...]) -> Path:
     src = _CSRC / source
     flags = [*_NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 
 

@@ -82,6 +82,7 @@ __all__ = [
     "batched_from_planar_lm",
     "limbs8_host",
     "philox4x32_10",
+    "philox_words",
     "KERNEL_VARIANTS",
 ]
 
@@ -364,21 +365,30 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
+def philox_words(seed: int, lanes: torch.Tensor, draws: torch.Tensor, n_words: int,
+                 tag: int) -> torch.Tensor:
+    """The first ``n_words`` PRNG words ``[D, n_words, T]`` (int64, u32
+    values) of every (draw, lane) for the global lane indices ``lanes``
+    ``[T]`` and draws ``draws`` ``[D]``: word ``w`` is output word ``w % 4``
+    of Philox4x32-10 with key ``(seed, 0)`` at counter ``(lane, draw, w //
+    4, tag)``. The port's kernels share this mapping and differ in ``tag``."""
+    groups = -(-n_words // 4)
+    dev = lanes.device
+    group = torch.arange(groups, dtype=torch.int64, device=dev)[None, :, None]
+    words = philox4x32_10(
+        (lanes[None, None, :], draws[:, None, None], group,
+         torch.full((), tag, dtype=torch.int64, device=dev)),
+        (seed, 0),
+    )
+    return torch.stack(words, dim=2).reshape(draws.shape[0], groups * 4, -1)[:, :n_words]
+
+
 def _rand_operand(plan: "Mxu8Plan", seed: int, lanes: torch.Tensor) -> torch.Tensor:
     """Biased randomness operand ``[Kr, T]`` (int64 values ``b - 128``) for
     the global lane indices ``lanes``: u16-field sums of every draw's PRNG
     words, in the ``(c, parity, w)`` row order of :func:`_big8_randsum`."""
-    rp, wpp = plan.rp, plan.words_per_p
-    groups = -(-wpp // 4)
-    dev = lanes.device
-    draw = torch.arange(rp, dtype=torch.int64, device=dev)[:, None, None]
-    group = torch.arange(groups, dtype=torch.int64, device=dev)[None, :, None]
-    words = philox4x32_10(
-        (lanes[None, None, :], draw, group, torch.zeros((), dtype=torch.int64, device=dev)),
-        (seed, 0),
-    )
-    # word 4 * group + q of every (draw, lane): [rp, groups * 4, T]
-    words = torch.stack(words, dim=2).reshape(rp, groups * 4, -1)[:, :wpp]
+    draws = torch.arange(plan.rp, dtype=torch.int64, device=lanes.device)
+    words = philox_words(seed, lanes, draws, plan.words_per_p, 0)  # [rp, wpp, T]
     accR = words.sum(dim=0) & _M32
     accO = (words >> _W16).sum(dim=0) & _M32
     # accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact

@@ -6,6 +6,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,7 +33,7 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[0])
-    assert count >= 18  # every submodule of the slice was imported
+    assert count >= 20  # every submodule of the slices was imported
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -67,6 +68,23 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FederatedAggregation.additive_small(device="cuda")
     assert FederatedAggregation.packed_64bit(dimension=16, device="cpu").engine.device.type == "cpu"
+
+    # the gen-3 and gen-1 entry points: asked for the CPU they run the plain
+    # versions there; a tensor on neither the CPU nor a card takes no route
+    eng = FederatedAggregation.packed_64bit(dimension=16, device="cpu").engine
+    secrets = eng.encode_secrets(np.arange(3 * 16).reshape(3, 16))
+    want = eng.ctx.sum_mod(secrets, axis=0)
+    out = eng.aggregate_mxu_kernel(eng.planar7_secrets(secrets, lanes=128), 1, 3, lanes=128)
+    assert out.device.type == "cpu" and torch.equal(out.to(torch.int64), want)
+    out = eng.aggregate_fused(secrets, 1, rows=1)
+    assert out.device.type == "cpu" and torch.equal(out, want)
+    ext = torch.cat([secrets, eng.random_ext(3)], dim=2)
+    assert eng.share_mxu(ext).device.type == "cpu"
+    meta = torch.empty(ext.shape, dtype=torch.int64, device="meta")
+    for call in (lambda: eng.aggregate_mxu_kernel(eng.planar7_ext(meta), 1, 3),
+                 lambda: eng.aggregate_fused(meta[:, :, :3], 1, rows=1)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
 
     from sda_tpu_torch.chacha import new_seed
     from sda_tpu_torch.engine import device_combine
