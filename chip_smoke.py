@@ -89,7 +89,26 @@ Phases, each of which raises on failure:
     reconstruction per step, the reveal on the first 128 lanes, the plain
     version on the card on the first 1,024 lanes, the launch and the step
     timed; ``aggregate_fused_streaming`` over 3 chunks x 64 participants of
-    the same width equal to the one-shot ``aggregate_fused_ext`` result.
+    the same width equal to the one-shot ``aggregate_fused_ext`` result;
+17. probe compare: ``csrc/probes.cu``'s floor probes on the card against
+    their plain versions on CPU copies, at the shapes their tools give
+    them: T1 at the config-2 job (2,400 rows x 384 lanes), T1' (1 KB in,
+    4 KB out), T2 at the serving batch (2,400 x 196,608), T3 at config 3
+    (2 chunks x 24,576 rows x 3,584 lanes): each output seed-filled and
+    bit-equal, each block's sink bit-equal, and the XOR of the sinks equal
+    to torch's XOR of the input's words on the card (the proof that every
+    byte was read); then each probe, its plain version on the card and the
+    library call (a torch sum of the input's words and a fill) timed;
+18. tools: ``sda_tpu_torch.tools.measure_latency_floor`` (T1, T1'),
+    ``measure_lane_batch_floor`` (T2) and ``measure_config3_variants``
+    (T3) at the reference's shapes, each with the counters set to 0 just
+    before it and read just after (its probe and its real kernel must have
+    launched), every reveal checked; each writes its artifact to
+    ``build/measurements/`` and gets one line of headline figures.
+
+The protocol host plane (``sda_tpu_torch.client`` against
+``sda_tpu_torch.server``) needs libsodium, which the card's machine does
+not have, so no phase here runs it; the CPU tests hold it.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or run
@@ -139,16 +158,6 @@ PHILOX_MUL_RE = re.compile(r"-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57", re.
 GEN1_STREAM = dict(chunks=3, p_chunk=64)
 
 
-def _card_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
-
-
 def _kernel_label(mangled: str):
     """Short name of a kernel instantiation: ``MT<n>`` for the mxu8 and
     mxu7 kernels' templates, ``L<n>`` for the planar CIOS kernel's, the
@@ -159,6 +168,11 @@ def _kernel_label(mangled: str):
     m = re.search(r"planar_cios_kernelILi(\d+)E", mangled)
     if m:
         return f"L{m.group(1)}"
+    m = re.search(r"probe_lanes_kernelILb([01])E", mangled)
+    if m:
+        return "T3" if m.group(1) == "1" else "T1/T2"
+    if "probe_bare_kernel" in mangled:
+        return "T1'"
     m = re.search(r"chacha_(?:keystream|fold)_kernel", mangled)
     return m.group(0) if m else None
 
@@ -264,19 +278,12 @@ def _innermost_philox_loops(instrs):
             and not any(h <= h2 and t2 <= t and (h2, t2) != (h, t) for h2, t2 in loops)]
 
 
-def _max_sm_mhz() -> float:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return float(proc.stdout.strip().splitlines()[0])
-
-
 def _variants() -> dict:
-    from sda_tpu_torch.ops import chacha_kernel, mxu8, mxu_kernel, pallas_kernels
+    from sda_tpu_torch.ops import chacha_kernel, mxu8, mxu_kernel, pallas_kernels, probes
 
     return {**mxu8.KERNEL_VARIANTS, **chacha_kernel.KERNEL_VARIANTS,
-            **mxu_kernel.KERNEL_VARIANTS, **pallas_kernels.KERNEL_VARIANTS}
+            **mxu_kernel.KERNEL_VARIANTS, **pallas_kernels.KERNEL_VARIANTS,
+            **probes.KERNEL_VARIANTS}
 
 
 def phase_build():
@@ -294,10 +301,13 @@ def _reset_counts():
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.ops import mxu_kernel as m7
     from sda_tpu_torch.ops import pallas_kernels as pk
+    from sda_tpu_torch.ops import probes
 
     m8.mxu8_launches = m8.mxu8_chunked_launches = m8.mxu8_acc_launches = 0
     ck.chacha_keystream_launches = ck.chacha_fold_launches = 0
     m7.mxu_fused_launches = pk.fused_planar_launches = 0
+    for name in probes.probe_launches:
+        probes.probe_launches[name] = 0
 
 
 def _chacha_counts():
@@ -311,37 +321,16 @@ def _counts():
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.ops import mxu_kernel as m7
     from sda_tpu_torch.ops import pallas_kernels as pk
+    from sda_tpu_torch.ops import probes
 
     return {"mxu8_fused": m8.mxu8_launches, "mxu8_chunked": m8.mxu8_chunked_launches,
             "mxu8_acc": m8.mxu8_acc_launches, "mxu7_fused": m7.mxu_fused_launches,
-            "planar_cios": pk.fused_planar_launches}
+            "planar_cios": pk.fused_planar_launches, **probes.probe_launches}
 
 
 def _only(**launches) -> dict:
     """The launch counts of a run that launched exactly ``launches``."""
     return {name: launches.get(name, 0) for name in _counts()}
-
-
-def _launch_cost(plan, nbp: int, acc: bool = False):
-    """(bytes, int8 operations) of one launch: every chunk of the operand,
-    the matrices and tables read once, the output written once (and, for
-    B3, the running sums read once), and the padded contractions."""
-    L = plan.mxu8.ctx.L
-    in_bytes = (plan.rows * plan.n_chunks * nbp + plan.bigs.numel() + plan.bigr.numel()
-                + plan.big2.numel() + 4 * plan.tables.numel())
-    out_bytes = 4 * L * plan.n_out * nbp * (2 if acc else 1)
-    ops = 2.0 * plan.n_pad * (plan.rows + plan.Kr) * nbp
-    if plan.n2:
-        ops += 2.0 * plan.big2.shape[0] * plan.big2.shape[1] * nbp
-    return in_bytes + out_bytes, ops * plan.n_chunks
-
-
-def _bound(costs):
-    """The least time for launches of the given (bytes, ops): the larger of
-    bytes over the HBM rate and int8 operations over the tensor-core rate."""
-    bytes_ms = sum(b for b, _ in costs) / PEAK_BYTES * 1e3
-    ops_ms = sum(o for _, o in costs) / PEAK_INT8 * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def _engines(dimension: int):
@@ -491,52 +480,21 @@ def phase_compare_chunked(P: int = 16, dimension: int = 3000):
     return cases, max_err
 
 
-def _planar_secrets(rows: int, nbp: int, L8: int, seed: int):
-    """The participation matrix synthesised on the card in the kernel's
-    biased planar layout; the top byte of each element is masked to 4 bits
-    so every element is canonical (< 2^(8*L8-4) < p)."""
-    import torch
-
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed)
-    d = torch.empty((rows, nbp), dtype=torch.uint8, device=DEVICE).random_(generator=gen)
-    d.view(rows // L8, L8, nbp)[:, L8 - 1] &= 0x0F
-    d ^= 0x80
-    return d.view(torch.int8)
-
-
-def _reveal_check(engine, sec8, out, p_count: int, width: int = 128, times: int = 1,
-                  what: str = "headline"):
-    """The kernel's reveal on the first ``width`` batch positions against
-    ``times`` x the modular sum of the participants' secrets decoded from
-    ``sec8`` (``times`` > 1: the same chunk streamed that often)."""
-    import torch
-
-    k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
-    d = sec8[:, :width].cpu().to(torch.int64) + 128  # unbiased bytes
-    d = d.reshape(p_count, k, L8, width)
-    x16 = torch.stack([d[:, :, 2 * w] + (d[:, :, 2 * w + 1] << 8) for w in range(L)], dim=-1)
-    once = engine.ctx.sum_mod(x16.permute(0, 2, 1, 3), axis=0)  # [width, k, L]
-    ref = once
-    for _ in range(times - 1):
-        ref = engine.ctx.add_mod(ref, once)
-    if not torch.equal(out[:width].cpu().to(torch.int64), ref):
-        raise AssertionError(f"{what} reveal != modular participant sum")
-
-
 def phase_headline(iters: int = 20):
     import torch
 
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
+    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
+                                             reveal_check_slice)
 
     model = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM)
     engine = model.engine
     k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
     nbp = -(-engine.nb // LANES) * LANES
     rows = HEADLINE_P * k * L8
-    sec8 = _planar_secrets(rows, nbp, L8, seed=7)
+    sec8 = make_planar_secrets(engine, 7, rows, nbp)
     torch.cuda.synchronize()
 
     # the main path: one aggregation step, counted
@@ -549,7 +507,7 @@ def phase_headline(iters: int = 20):
         raise AssertionError(f"the headline step did not launch the mxu8 kernel: {counts}")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"headline output has shape {tuple(out.shape)} or limbs out of range")
-    _reveal_check(engine, sec8, out, HEADLINE_P)
+    reveal_check_slice(engine, sec8, out, HEADLINE_P)
 
     # the plain version at the same shape, on the card, against the kernel
     plan = engine._plan("share", rows, HEADLINE_P, sec8.device)
@@ -578,8 +536,8 @@ def phase_headline(iters: int = 20):
         rand_participants=1, device=DEVICE,
     )
     t_rp1 = cuda_time(lambda i: m8.run_mxu8(plan_rp1, sec8, i), iters=iters, warmup=3)
-    cost = _launch_cost(plan, nbp)
-    bound_ms, bound_by = _bound([cost])
+    cost = mxu8_cost(plan, nbp)
+    bound_ms, bound_by = bound([cost])
     philox_words = float(nbp) * plan.rp * plan.words_per_p
     return {
         "launches": launches, "timing": t, "plain_ms": t_plain.median_ms, "max_abs_err": err,
@@ -626,6 +584,8 @@ def phase_config3(iters: int = 20):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
+    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
+                                             reveal_check_slice)
 
     c = CONFIG3
     engine = FederatedAggregation.packed_128bit(dimension=c["dimension"]).engine
@@ -633,7 +593,7 @@ def phase_config3(iters: int = 20):
     lanes, n_chunks, p_chunk = c["lanes"], c["n_chunks"], c["p_chunk"]
     nbp = -(-engine.nb // lanes) * lanes
     rows = p_chunk * k * L8
-    sec8 = torch.cat([_planar_secrets(rows, nbp, L8, seed=30 + i) for i in range(n_chunks)])
+    sec8 = torch.cat([make_planar_secrets(engine, 30 + i, rows, nbp) for i in range(n_chunks)])
     torch.cuda.synchronize()
 
     _reset_counts()
@@ -644,7 +604,7 @@ def phase_config3(iters: int = 20):
         raise AssertionError(f"config 3 step launched {counts}, not one B2 launch")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"config 3 output has shape {tuple(out.shape)} or limbs out of range")
-    _reveal_check(engine, sec8, out, n_chunks * p_chunk, width=lanes, what="config 3")
+    reveal_check_slice(engine, sec8, out, n_chunks * p_chunk, width=lanes, what="config 3")
 
     plan = engine._plan("share", rows, p_chunk, sec8.device, n_chunks)
     raw = m8.run_mxu8(plan, sec8, 1, lanes=lanes)
@@ -660,7 +620,7 @@ def phase_config3(iters: int = 20):
                                                        lanes=lanes),
         iters=iters, warmup=3,
     )
-    bound_ms, bound_by = _bound([_launch_cost(plan, nbp)])
+    bound_ms, bound_by = bound([mxu8_cost(plan, nbp)])
     return {
         "launches": counts["mxu8_chunked"], "timing": t, "plain_ms": t_plain.median_ms,
         "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -677,6 +637,8 @@ def phase_config4(iters: int = 5):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
+    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
+                                             reveal_check_slice)
 
     c = CONFIG4
     engine = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM).engine
@@ -684,7 +646,7 @@ def phase_config4(iters: int = 5):
     p_chunk, n_chunks = c["p_chunk"], c["n_chunks"]
     nbp = -(-engine.nb // LANES) * LANES
     rows = p_chunk * k * L8
-    chunk = _planar_secrets(rows, nbp, L8, seed=40)  # resident, re-read per chunk
+    chunk = make_planar_secrets(engine, 40, rows, nbp)  # resident, re-read per chunk
     torch.cuda.synchronize()
 
     def step(seed0):
@@ -699,7 +661,7 @@ def phase_config4(iters: int = 5):
         raise AssertionError(f"config 4 step launched {counts}, not B1 x 2 and B3 x 13")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"config 4 output has shape {tuple(out.shape)} or limbs out of range")
-    _reveal_check(engine, chunk, out, p_chunk, times=n_chunks, what="config 4")
+    reveal_check_slice(engine, chunk, out, p_chunk, times=n_chunks, what="config 4")
 
     # one B3 launch against its plain version on the card, onto a canonical
     # running sum
@@ -730,10 +692,10 @@ def phase_config4(iters: int = 5):
     busy_ms, traced_wall_ms, activities = _trace(lambda: step(5000))
 
     rec_plan = engine._plan("reconstruct", engine.spec.share_count * L8, 1, chunk.device)
-    acc_cost = _launch_cost(plan, nbp, acc=True)
-    step_costs = [_launch_cost(plan, nbp)] + [acc_cost] * (n_chunks - 1) + [_launch_cost(rec_plan, nbp)]
-    step_bound_ms, step_bound_by = _bound(step_costs)
-    bound_ms, bound_by = _bound([acc_cost])
+    acc_cost = mxu8_cost(plan, nbp, acc=True)
+    step_costs = [mxu8_cost(plan, nbp)] + [acc_cost] * (n_chunks - 1) + [mxu8_cost(rec_plan, nbp)]
+    step_bound_ms, step_bound_by = bound(step_costs)
+    bound_ms, bound_by = bound([acc_cost])
     return {
         "launches": counts["mxu8_acc"], "fused_launches": counts["mxu8_fused"], "timing": t_acc,
         "plain_ms": t_plain.median_ms, "max_abs_err": err,
@@ -758,13 +720,15 @@ def phase_serving(iters: int = 20):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
+    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
+                                             reveal_check_slice)
 
     c = SERVING
     engine = FederatedAggregation.packed_64bit(dimension=c["dimension"]).engine
     k, L8, L = engine.spec.secret_count, engine.mxu8.L8, engine.ctx.L
     P, n_jobs, job_lanes = c["participants"], c["jobs"], c["job_lanes"]
     rows = P * k * L8
-    jobs = list(_planar_secrets(rows, n_jobs * job_lanes, L8, seed=50).split(job_lanes, dim=1))
+    jobs = list(make_planar_secrets(engine, 50, rows, n_jobs * job_lanes).split(job_lanes, dim=1))
     batched = engine.concat_jobs_lanes(jobs)
     nbp = batched.shape[1]
     torch.cuda.synchronize()
@@ -780,7 +744,8 @@ def phase_serving(iters: int = 20):
         if tuple(outs.shape) != (n_jobs, engine.nb, k, L):
             raise AssertionError(f"serving output has shape {tuple(outs.shape)}")
         for j in (0, 1, n_jobs - 1):
-            _reveal_check(engine, jobs[j], outs[j], P, width=engine.nb, what=f"serving job {j}")
+            reveal_check_slice(engine, jobs[j], outs[j], P, width=engine.nb,
+                               what=f"serving job {j}")
         plan = engine._plan("share", rows, P, batched.device,
                             rand_participants=1 if combined else None)
         err = int((m8.run_mxu8(plan, batched, 5).to(torch.int64)
@@ -793,7 +758,7 @@ def phase_serving(iters: int = 20):
                                                         combined_randomness=combined),
             iters=iters, warmup=3,
         )
-        bound_ms, bound_by = _bound([_launch_cost(plan, nbp)])
+        bound_ms, bound_by = bound([mxu8_cost(plan, nbp)])
         res[combined] = {"launches": counts["mxu8_fused"], "timing": t, "max_abs_err": err,
                          "bound_ms": bound_ms, "bound_by": bound_by}
     res["shape"] = f"{n_jobs} jobs x P={P} dim={c['dimension']} NBP={nbp}"
@@ -1639,6 +1604,135 @@ def phase_gen1_headline(mhz: float, iters: int = 5, rows: int = 8):
     }
 
 
+def _probe_cases():
+    """The probes at the shapes their tools give them: (name, input,
+    out_rows (T1, T2, T3) or output words (T1'), n_chunks, shape label)."""
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.tools._common import make_planar_secrets
+
+    e2 = FederatedAggregation.packed_64bit(dimension=SERVING["dimension"]).engine
+    e3 = FederatedAggregation.packed_128bit(dimension=CONFIG3["dimension"]).engine
+    job_lanes = -(-e2.nb // 128) * 128
+    rows2 = SERVING["participants"] * e2.spec.secret_count * e2.mxu8.L8
+    c = CONFIG3
+    rows3 = c["p_chunk"] * e3.spec.secret_count * e3.mxu8.L8
+    nbp3 = -(-e3.nb // c["lanes"]) * c["lanes"]
+    return [
+        ("T1", make_planar_secrets(e2, 101, rows2, job_lanes), e2.ctx.L * e2.spec.secret_count, 1,
+         f"config-2 job: rows={rows2} NBP={job_lanes}"),
+        ("T1'", torch.zeros((8, 128), dtype=torch.int8, device=DEVICE), 8 * 128, 1,
+         "bare: 1 KB in, 4 KB out"),
+        ("T2", make_planar_secrets(e2, 102, rows2, SERVING["jobs"] * job_lanes),
+         e2.ctx.L * e2.spec.secret_count, 1,
+         f"serving: rows={rows2} NBP={SERVING['jobs'] * job_lanes}"),
+        ("T3", torch.cat([make_planar_secrets(e3, 103 + i, rows3, nbp3)
+                          for i in range(c["n_chunks"])]),
+         e3.ctx.L * e3.spec.secret_count, c["n_chunks"],
+         f"config 3: {c['n_chunks']} chunks x rows={rows3} NBP={nbp3}"),
+    ]
+
+
+def phase_probe_compare():
+    """T1, T1', T2 and T3 on the card against their plain versions on CPU
+    copies of the same inputs: the output seed-filled and bit-equal, every
+    sink bit-equal, and the XOR of the sinks equal to torch's XOR of the
+    input's words on the card. Then each probe, its plain version on the
+    card and the library call at that shape, timed with CUDA events."""
+    import torch
+
+    from sda_tpu_torch.ops import probes
+    from sda_tpu_torch.utils.profiling import cuda_time_samples
+
+    def run(name, x, out_size, n_chunks, seed):
+        if name == "T1'":
+            return probes.probe_t1_bare(x, out_size, seed)
+        if name == "T3":
+            return probes.probe_t3(x, out_size, n_chunks, seed)
+        return (probes.probe_t1 if name == "T1" else probes.probe_t2)(x, out_size, seed)
+
+    res = {}
+    for name, x, out_size, n_chunks, shape in _probe_cases():
+        seed = 0x9E3779B9  # bit 31 set: the int32 view of the fill is negative
+        out, sink = run(name, x, out_size, n_chunks, seed)
+        torch.cuda.synchronize()
+        want_out, want_sink = run(name, x.cpu(), out_size, n_chunks, seed)
+        err = max(int((out.cpu().to(torch.int64) - want_out.to(torch.int64)).abs().max()),
+                  int((sink.cpu().to(torch.int64) - want_sink.to(torch.int64)).abs().max()))
+        if err or int(out[0].flatten()[0]) & 0xFFFFFFFF != seed:
+            raise AssertionError(f"probe {name} != its plain version: max err {err}")
+        if probes.xor_words(sink) != probes.xor_words(x):
+            raise AssertionError(f"probe {name}: the sinks' XOR != torch's XOR of the input")
+        t = cuda_time_samples(lambda i: run(name, x, out_size, n_chunks, i), samples=5, iters=10)
+        sink_plain = probes.xor_words if name == "T1'" else probes._sink_plain
+        t_plain = cuda_time_samples(lambda i: (out.fill_(i), sink_plain(x)), samples=3, iters=2)
+        t_lib = cuda_time_samples(lambda i: probes.library_probe(x, out, i), samples=5, iters=10)
+        nbytes = probes.probe_bytes(x, out, sink)
+        res[name] = {"max_abs_err": err, "timing": t, "plain_ms": t_plain.median_ms,
+                     "library_ms": t_lib.median_ms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                     "bytes": nbytes, "shape": shape}
+        del x, out, sink
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tool_launches(name: str, tool, artifact) -> dict:
+    """The launches a tool's run must count: every check call, plus
+    ``timed_calls`` per timed experiment."""
+    from sda_tpu_torch.tools._common import timed_calls
+
+    n = timed_calls(tool.SAMPLES, tool.ITERS)
+    if name == "latency":
+        # B1: the job and the 64-job launch, each checked then timed; T1 and
+        # T1': checked then timed
+        return _only(mxu8_fused=2 + n + timed_calls(tool.SAMPLES, tool.BATCH_ITERS),
+                     probe_t1=1 + n, probe_t1_bare=1 + n)
+    if name == "lane_batch":
+        # B1: the batch and the 4x batch checked; five timed experiments
+        return _only(mxu8_fused=2 + 5 * n, probe_t2=1 + n)
+    # config 3: each row checked then timed, B1 at one chunk and B2 above;
+    # two controls at the best row; T3 at the best row and the best
+    # multi-chunk row, each checked then timed
+    fused = sum(1 + n for row in artifact["rows"] if row["n_chunks"] == 1)
+    chunked = sum(1 + n for row in artifact["rows"] if row["n_chunks"] > 1)
+    if artifact["best"]["n_chunks"] == 1:
+        fused += 2 * n
+    else:
+        chunked += 2 * n
+    return _only(mxu8_fused=fused, mxu8_chunked=chunked, probe_t3=2 * (1 + n))
+
+
+def phase_tools():
+    """The port's three probe tools at the reference's shapes, each with the
+    launch counters set to 0 just before it and read just after, and held
+    to exactly the launches its experiments make; each writes its artifact
+    under build/measurements/."""
+    import torch
+
+    from sda_tpu_torch.tools import _common
+    from sda_tpu_torch.tools import measure_config3_variants as c3
+    from sda_tpu_torch.tools import measure_lane_batch_floor as lb
+    from sda_tpu_torch.tools import measure_latency_floor as lf
+
+    res = {}
+    for name, tool, artifact_name in (("latency", lf, "LATENCY_FLOOR"),
+                                      ("lane_batch", lb, "LANE_BATCH_FLOOR"),
+                                      ("config3", c3, "CONFIG3_SWEEP")):
+        _reset_counts()
+        t0 = time.perf_counter()
+        artifact = tool.measure()
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = _tool_launches(name, tool, artifact)
+        if counts != want:
+            raise AssertionError(f"the {name} tool launched {counts}, not {want}")
+        res[name] = {"artifact": artifact, "counts": counts, "s": time.perf_counter() - t0,
+                     "path": _common.write_artifact(artifact_name, artifact)}
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1654,7 +1748,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(root))
 
-    card = _card_line()
+    from sda_tpu_torch.utils.profiling import card_line, max_sm_mhz
+
+    card = card_line()
     name = torch.cuda.get_device_name(0)
     build_s, ptxas = phase_build()
     print(f"build: {build_s:.1f} s (nvcc, sm_90a, {len(ptxas)} variants in parallel)", flush=True)
@@ -1738,7 +1834,7 @@ def main() -> int:
     fwd_s = phase_forward()
     print(f"forward: CIOS forward, 32 x {HEADLINE_DIM}, revealed exactly in {fwd_s:.3f} s", flush=True)
 
-    mhz = _max_sm_mhz()
+    mhz = max_sm_mhz()
     cc = phase_compare_chacha()
     m4, m5 = cc["mid4"], cc["mid5"]
     print(f"chacha compare: B4 {cc['cases']['chacha_keystream']} cases, expand_masks_device "
@@ -1834,6 +1930,52 @@ def main() -> int:
     print(f"gen-1 streaming: {GEN1_STREAM['chunks']} chunks x {GEN1_STREAM['p_chunk']} "
           f"participants x {HEADLINE_DIM}, caller randomness: B7 x {g1['stream_launches']}, "
           f"equal to the one-shot aggregate_fused_ext, reveal exact", flush=True)
+
+    pc = phase_probe_compare()
+    for probe, r in pc.items():
+        tp = r["timing"]
+        print(f"probe compare: {probe} ({r['shape']}) on {card}: output seed-filled and bit-equal "
+              f"to the plain version, sinks bit-equal, sink XOR == torch's XOR of the input; "
+              f"median {tp.median_ms:.4f} ms (min {tp.min_ms:.4f}, max {tp.max_ms:.4f}), "
+              f"{r['bytes'] / (tp.median_ms / 1e3) / 1e12:.3f} TB/s; bound {r['bound_ms']:.4f} ms "
+              f"(bytes); plain on card {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms "
+              f"({r['bytes'] / (r['library_ms'] / 1e3) / 1e12:.3f} TB/s)", flush=True)
+
+    tools = phase_tools()
+    lat, lane, sweep = (tools[k]["artifact"] for k in ("latency", "lane_batch", "config3"))
+    print(f"tool latency floor: config-2 job {lat['single_job_s'] * 1e3:.4f} ms on {card}, T1 "
+          f"copy floor {lat['noop_same_shape_s'] * 1e3:.4f} ms (bound "
+          f"{lat['noop_bound_s'] * 1e3:.4f}), T1' bare launch {lat['bare_launch_s'] * 1e3:.4f} ms, "
+          f"kernel work {lat['kernel_work_s'] * 1e3:.4f} ms, {lat['fraction_of_sol']:.4f} of the "
+          f"job's bound; {lat['batched_jobs']} jobs in one launch "
+          f"{lat['batched64_per_job_s'] * 1e3:.4f} ms per job; reveals exact; "
+          f"probe_t1 x {tools['latency']['counts']['probe_t1']}, probe_t1_bare x "
+          f"{tools['latency']['counts']['probe_t1_bare']}; {tools['latency']['s']:.1f} s; "
+          f"wrote {tools['latency']['path'].relative_to(root)}", flush=True)
+    ex, dec = lane["experiments"], lane["decomposition"]
+    real_lane = ex[f"real_lanes{lane['shape']['kernel_lanes']}"]["s"]["median"]
+    print(f"tool lane-batch floor: 512 jobs on {card}: real {real_lane * 1e3:.4f} ms, "
+          f"T2 copy floor {dec['dma_floor_s'] * 1e3:.4f} ms ({dec['copy_floor_tb_s']:.3f} TB/s; "
+          f"library {dec['library_tb_s']:.3f} TB/s), combine only "
+          f"{ex['combine_only']['s']['median'] * 1e3:.4f} ms, caller randomness "
+          f"{ex['host_randomness']['s']['median'] * 1e3:.4f} ms, combined draw "
+          f"{ex['combined_draw']['s']['median'] * 1e3:.4f} ms, 4x participants "
+          f"{ex['same_bytes_4x_participants']['s']['median'] * 1e3:.4f} ms; reveals exact; "
+          f"probe_t2 x {tools['lane_batch']['counts']['probe_t2']}; "
+          f"{tools['lane_batch']['s']:.1f} s; "
+          f"wrote {tools['lane_batch']['path'].relative_to(root)}", flush=True)
+    best, ctl, bc = sweep["best"], sweep["controls_at_best"], sweep["noop_at_best_chunked"]
+    print(f"tool config-3 sweep: {len(sweep['rows'])} launches on {card}, best n_chunks="
+          f"{best['n_chunks']} NBP={best['nbp']} {best['ms']:.4f} ms "
+          f"({best['fraction_of_sol']:.4f} of its bound); best of more than one chunk "
+          f"n_chunks={bc['n_chunks']} NBP={bc['nbp']} {bc['real_ms']:.4f} ms, its T3 copy floor "
+          f"{bc['noop_ms']:.4f} ms ({bc['copy_floor_tb_s']:.3f} TB/s); at the best, T3 copy floor "
+          f"{ctl['noop_dma_floor_ms']:.4f} ms "
+          f"({ctl['copy_floor_tb_s']:.3f} TB/s; library {ctl['library_tb_s']:.3f} TB/s), combined "
+          f"draw {ctl['combined_draw_ms']:.4f} ms, no reconstruction "
+          f"{ctl['no_reconstruction_ms']:.4f} ms; reveals exact; probe_t3 x "
+          f"{tools['config3']['counts']['probe_t3']}; {tools['config3']['s']:.1f} s; "
+          f"wrote {tools['config3']['path'].relative_to(root)}", flush=True)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -1998,6 +2140,42 @@ def main() -> int:
             "mid_plain_cpu_ms": midp["plain_cpu_ms"],
             "launches_streaming": g1["stream_launches"],
         },
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/probes.cu",
+            "replaces": replaces,
+            "launches": tools[tool]["counts"][name],
+            "max_abs_err": max(pc[p]["max_abs_err"] for p in probes),
+            "ms": pc[probes[0]]["timing"].median_ms,
+            "min_ms": pc[probes[0]]["timing"].min_ms,
+            "max_ms": pc[probes[0]]["timing"].max_ms,
+            "plain_ms": pc[probes[0]]["plain_ms"],
+            "bound_ms": pc[probes[0]]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": pc[probes[0]]["library_ms"],
+            "shape": pc[probes[0]]["shape"],
+            **extra,
+        } for name, tool, replaces, probes, extra in (
+            ("probe_t1", "latency", "tools/measure_latency_floor.py:76", ("T1", "T1'"), {
+                "bare_replaces": "tools/measure_latency_floor.py:93",
+                "bare_launches": tools["latency"]["counts"]["probe_t1_bare"],
+                "bare_ms": pc["T1'"]["timing"].median_ms,
+                "bare_bound_ms": pc["T1'"]["bound_ms"],
+                "bare_library_ms": pc["T1'"]["library_ms"],
+                "tool_noop_ms": lat["noop_same_shape_s"] * 1e3,
+                "tool_bare_ms": lat["bare_launch_s"] * 1e3,
+            }),
+            ("probe_t2", "lane_batch", "tools/measure_lane_batch_floor.py:100", ("T2",), {
+                "tool_noop_ms": lane["decomposition"]["dma_floor_s"] * 1e3,
+            }),
+            ("probe_t3", "config3", "tools/measure_config3_variants.py:126", ("T3",), {
+                "tool_noop_ms": sweep["controls_at_best"]["noop_dma_floor_ms"],
+                "tool_shape": f"n_chunks={sweep['best']['n_chunks']} NBP={sweep['best']['nbp']}",
+                "tool_chunked_noop_ms": bc["noop_ms"],
+                "tool_chunked_shape": f"n_chunks={bc['n_chunks']} NBP={bc['nbp']}",
+            }),
+        )),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -20,6 +20,13 @@ Layer map (bottom-up):
 - :mod:`sda_tpu_torch.routing`  measured host-vs-device route decisions
 - :mod:`sda_tpu_torch.masking`  None / Full / ChaCha maskers
 - :mod:`sda_tpu_torch.models`   the federated-aggregation workload
+- :mod:`sda_tpu_torch.protocol`, :mod:`sda_tpu_torch.sodium`,
+  :mod:`sda_tpu_torch.client`, :mod:`sda_tpu_torch.service`,
+  :mod:`sda_tpu_torch.stores`, :mod:`sda_tpu_torch.server` the protocol's
+  host plane: wire resources, sealed boxes and signatures, the participant
+  / clerk / recipient client and the in-process server
+- :mod:`sda_tpu_torch.tools`    the measurement tools (the floor probes of
+  :mod:`sda_tpu_torch.ops.probes`, the combine crossover)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

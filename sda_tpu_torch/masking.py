@@ -20,7 +20,8 @@ re-expands through
 raise when there is no card. ``device="cpu"`` (with no ``routing``) or
 ``RoutingPolicy.force("host")`` keeps the reference's host fold; any other
 :class:`sda_tpu_torch.routing.RoutingPolicy` decides per call. The factory
-``masker_for_scheme`` is not ported yet: it needs the protocol module.
+:func:`masker_for_scheme` builds the masker a protocol scheme descriptor
+names.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from sda_tpu_torch import chacha
 from sda_tpu_torch.fields import PrimeField, trunc_add_mod, trunc_mod, trunc_sub_mod
 from sda_tpu_torch.utils.errors import Invalid
 
-__all__ = ["NoneMasker", "FullMasker", "ChaChaMasker"]
+__all__ = ["NoneMasker", "FullMasker", "ChaChaMasker", "masker_for_scheme"]
 
 
 class NoneMasker:
@@ -227,3 +228,36 @@ class ChaChaMasker:
             np.asarray(mask, dtype=np.int64),
             self.modulus,
         )
+
+
+def masker_for_scheme(scheme, device_bulk_threshold: int | None = None,
+                      routing=None, device=None):
+    """Factory mirroring CryptoModule's masker construction (masking/mod.rs:33-52).
+
+    ``routing`` (a :class:`sda_tpu_torch.routing.RoutingPolicy`) forwards to
+    maskers with a device bulk path (ChaCha seed re-expansion and the
+    Full-mask combine, both at reveal time); ``device_bulk_threshold`` is
+    the deprecated knob that now maps onto the policy's size floor only;
+    ``device`` is where their device route runs (the card unless ``"cpu"``).
+    """
+    from sda_tpu_torch import protocol as proto
+
+    if isinstance(scheme, proto.NoMasking):
+        return NoneMasker()
+    if isinstance(scheme, proto.FullMasking):
+        return FullMasker(
+            scheme.modulus,
+            device_bulk_threshold=device_bulk_threshold,
+            routing=routing,
+            device=device,
+        )
+    if isinstance(scheme, proto.ChaChaMasking):
+        return ChaChaMasker(
+            scheme.modulus,
+            scheme.dimension,
+            scheme.seed_bitsize,
+            device_bulk_threshold=device_bulk_threshold,
+            routing=routing,
+            device=device,
+        )
+    raise Invalid(f"unknown masking scheme: {scheme!r}")

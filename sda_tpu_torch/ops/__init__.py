@@ -16,4 +16,10 @@
   (+ reconstruct): a hand-written CUDA kernel and its plain version.
 - :mod:`sda_tpu_torch.ops.chacha_kernel` — the ChaCha mask expansion and
   fold: two hand-written CUDA kernels and their plain versions.
+- :mod:`sda_tpu_torch.ops.probes` — the floor probes of the measurement
+  tools: hand-written CUDA kernels that move a kernel's bytes through its
+  grid and nothing else, and their plain versions.
+- :mod:`sda_tpu_torch.ops.cuda_build` / :mod:`sda_tpu_torch.ops.native_build`
+  — build and load the CUDA kernels and the host-side native library at
+  first use.
 """

@@ -1,0 +1,387 @@
+"""Server storage backends.
+
+Store interfaces mirror server/src/stores.rs (the four boxed
+traits the server orchestrates over); the JSON-directory backend mirrors the
+jfs layout (server/src/jfs_stores/) including its semantics:
+
+- ``create`` is compare-on-conflict idempotent: re-creating an identical
+  record succeeds, a differing record fails (jfs_stores/mod.rs:79-89) — this
+  is what makes client retries safe;
+- ``suggest_committee`` groups all known signed keys by signer
+  (jfs_stores/agents.rs:66-82);
+- clerking jobs are durable queues: a job only moves queue -> done once its
+  result is stored (jfs_stores/clerking_jobs.rs:51-58);
+- snapshot content is the list of frozen participation ids
+  (jfs_stores/aggregations.rs:110-121).
+
+A dict-backed in-memory variant shares all logic via a tiny KV abstraction
+(the same trick lets a Mongo backend slot in; the port has none yet).
+
+Port of the reference package's ``stores`` module: the in-memory and JSON
+directory backends.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from abc import ABC, abstractmethod
+from typing import Iterator, Optional
+
+from sda_tpu_torch import protocol as proto
+from sda_tpu_torch.utils.errors import Invalid
+
+__all__ = ["Stores", "JsonDirStores", "MemoryStores"]
+
+
+class _KV(ABC):
+    """Minimal namespaced KV with ordered listing."""
+
+    @abstractmethod
+    def get(self, ns: str, key: str) -> Optional[dict]: ...
+
+    @abstractmethod
+    def put(self, ns: str, key: str, value) -> None: ...
+
+    @abstractmethod
+    def delete(self, ns: str, key: str) -> None: ...
+
+    @abstractmethod
+    def keys(self, ns: str) -> list[str]: ...
+
+    def create(self, ns: str, key: str, value) -> None:
+        """Compare-on-conflict create (jfs_stores/mod.rs:79-89)."""
+        existing = self.get(ns, key)
+        if existing is None:
+            self.put(ns, key, value)
+        elif existing != value:
+            raise Invalid(f"conflicting create for {ns}/{key}")
+
+
+class _MemoryKV(_KV):
+    def __init__(self):
+        self._data: dict[str, dict] = {}
+        self._lock = threading.RLock()
+
+    def get(self, ns, key):
+        with self._lock:
+            v = self._data.get(ns, {}).get(key)
+            return json.loads(v) if v is not None else None
+
+    def put(self, ns, key, value):
+        with self._lock:
+            self._data.setdefault(ns, {})[key] = json.dumps(value)
+
+    def create(self, ns, key, value):
+        with self._lock:  # atomic get+compare+put under the threaded server
+            super().create(ns, key, value)
+
+    def delete(self, ns, key):
+        with self._lock:
+            self._data.get(ns, {}).pop(key, None)
+
+    def keys(self, ns):
+        with self._lock:
+            return sorted(self._data.get(ns, {}).keys())
+
+
+class _JsonDirKV(_KV):
+    """One JSON file per record, namespaced by subdirectory (jfs-style)."""
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._lock = threading.RLock()
+
+    def _path(self, ns, key):
+        d = os.path.join(self.root, *ns.split("/"))
+        return os.path.join(d, f"{key}.json")
+
+    def get(self, ns, key):
+        try:
+            with open(self._path(ns, key)) as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return None
+
+    def put(self, ns, key, value):
+        with self._lock:
+            path = self._path(ns, key)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(value, f)
+            os.replace(tmp, path)
+
+    def create(self, ns, key, value):
+        with self._lock:  # atomic get+compare+put under the threaded server
+            super().create(ns, key, value)
+
+    def delete(self, ns, key):
+        with self._lock:
+            try:
+                os.remove(self._path(ns, key))
+            except FileNotFoundError:
+                pass
+
+    def keys(self, ns):
+        d = os.path.join(self.root, *ns.split("/"))
+        try:
+            return sorted(n[:-5] for n in os.listdir(d) if n.endswith(".json"))
+        except FileNotFoundError:
+            return []
+
+
+class Stores:
+    """All four store interfaces over one KV backend.
+
+    Implements AgentsStore + AuthTokensStore + AggregationsStore +
+    ClerkingJobsStore (stores.rs:10-120) with the jfs backend's semantics.
+    """
+
+    def __init__(self, kv: _KV):
+        self._kv = kv
+        self._lock = threading.RLock()
+
+    # --------------------------------------------------------------- base
+
+    def ping(self) -> None:
+        self._kv.keys("agents")
+
+    # -------------------------------------------------------- auth tokens
+
+    def upsert_auth_token(self, token: proto.AuthToken) -> None:
+        self._kv.put("auth_tokens", token.id, token.to_obj())
+
+    def get_auth_token(self, agent_id: str) -> Optional[proto.AuthToken]:
+        obj = self._kv.get("auth_tokens", agent_id)
+        return proto.AuthToken.from_obj(obj) if obj else None
+
+    def delete_auth_token(self, agent_id: str) -> None:
+        self._kv.delete("auth_tokens", agent_id)
+
+    # ------------------------------------------------------------- agents
+
+    def create_agent(self, agent: proto.Agent) -> None:
+        self._kv.create("agents", agent.id, agent.to_obj())
+
+    def get_agent(self, agent_id: str) -> Optional[proto.Agent]:
+        obj = self._kv.get("agents", agent_id)
+        return proto.Agent.from_obj(obj) if obj else None
+
+    def upsert_profile(self, profile: proto.Profile) -> None:
+        self._kv.put("profiles", profile.owner, profile.to_obj())
+
+    def get_profile(self, owner: str) -> Optional[proto.Profile]:
+        obj = self._kv.get("profiles", owner)
+        return proto.Profile.from_obj(obj) if obj else None
+
+    def create_encryption_key(self, key: proto.Signed) -> None:
+        self._kv.create("keys", key.id, key.to_obj())
+
+    def get_encryption_key(self, key_id: str) -> Optional[proto.Signed]:
+        obj = self._kv.get("keys", key_id)
+        return proto.signed_encryption_key_from_obj(obj) if obj else None
+
+    def suggest_committee(self) -> list[proto.ClerkCandidate]:
+        """Group all known signed keys by signer (jfs_stores/agents.rs:66-82)."""
+        by_signer: dict[str, list[str]] = {}
+        for key_id in self._kv.keys("keys"):
+            obj = self._kv.get("keys", key_id)
+            if obj:
+                by_signer.setdefault(obj["signer"], []).append(key_id)
+        return [
+            proto.ClerkCandidate(id=signer, keys=tuple(keys))
+            for signer, keys in sorted(by_signer.items())
+        ]
+
+    # ------------------------------------------------------- aggregations
+
+    def list_aggregations(
+        self, filter: Optional[str] = None, recipient: Optional[str] = None
+    ) -> list[str]:
+        out = []
+        for agg_id in self._kv.keys("aggregations"):
+            obj = self._kv.get("aggregations", agg_id)
+            if obj is None:
+                continue
+            if filter is not None and filter not in obj["title"]:
+                continue
+            if recipient is not None and obj["recipient"] != recipient:
+                continue
+            out.append(agg_id)
+        return out
+
+    def create_aggregation(self, aggregation: proto.Aggregation) -> None:
+        self._kv.create("aggregations", aggregation.id, aggregation.to_obj())
+
+    def get_aggregation(self, aggregation: str) -> Optional[proto.Aggregation]:
+        obj = self._kv.get("aggregations", aggregation)
+        return proto.Aggregation.from_obj(obj) if obj else None
+
+    def delete_aggregation(self, aggregation: str) -> None:
+        """Delete ALL information about the aggregation, including snapshots,
+        masks, clerking jobs, and results (the methods.rs:94-95 contract:
+        "Delete all information (including results)")."""
+        committee = self.get_committee(aggregation)
+        clerks = [c for c, _ in committee.clerks_and_keys] if committee else []
+        for sid in self.list_snapshots(aggregation):
+            self._kv.delete("snapshot_contents", sid)
+            self._kv.delete("snapshot_masks", sid)
+            for job in self._kv.keys(f"jobs/results/{sid}"):
+                self._kv.delete(f"jobs/results/{sid}", job)
+            self._kv.delete(f"snapshots/{aggregation}", sid)
+        for clerk in clerks:
+            for state in ("queue", "done"):
+                for jid in self._kv.keys(f"jobs/{state}/{clerk}"):
+                    obj = self._kv.get(f"jobs/{state}/{clerk}", jid)
+                    if obj and obj.get("aggregation") == aggregation:
+                        self._kv.delete(f"jobs/{state}/{clerk}", jid)
+        self._kv.delete("aggregations", aggregation)
+        self._kv.delete("committees", aggregation)
+        for pid in self._kv.keys(f"participations/{aggregation}"):
+            self._kv.delete(f"participations/{aggregation}", pid)
+
+    def get_committee(self, aggregation: str) -> Optional[proto.Committee]:
+        obj = self._kv.get("committees", aggregation)
+        return proto.Committee.from_obj(obj) if obj else None
+
+    def create_committee(self, committee: proto.Committee) -> None:
+        self._kv.create("committees", committee.aggregation, committee.to_obj())
+
+    def create_participation(self, participation: proto.Participation) -> None:
+        # client-generated ids make retries idempotent (resources.rs:93-101)
+        self._kv.create(
+            f"participations/{participation.aggregation}",
+            participation.id,
+            participation.to_obj(),
+        )
+
+    def count_participations(self, aggregation: str) -> int:
+        return len(self._kv.keys(f"participations/{aggregation}"))
+
+    def create_snapshot(self, snapshot: proto.Snapshot) -> None:
+        # namespaced per aggregation: list_snapshots is O(own snapshots)
+        # instead of a scan of every aggregation's (it sits on the
+        # get_aggregation_status path recipients poll in a loop)
+        self._kv.create(
+            f"snapshots/{snapshot.aggregation}", snapshot.id, snapshot.to_obj()
+        )
+
+    def list_snapshots(self, aggregation: str) -> list[str]:
+        return self._kv.keys(f"snapshots/{aggregation}")
+
+    def get_snapshot(self, aggregation: str, snapshot: str) -> Optional[proto.Snapshot]:
+        obj = self._kv.get(f"snapshots/{aggregation}", snapshot)
+        return proto.Snapshot.from_obj(obj) if obj else None
+
+    def snapshot_participations(self, aggregation: str, snapshot: str) -> None:
+        """Freeze the current participation id set (aggregations.rs:110-121)."""
+        pids = self._kv.keys(f"participations/{aggregation}")
+        self._kv.put("snapshot_contents", snapshot, {"participations": pids})
+
+    def iter_snapped_participations(
+        self, aggregation: str, snapshot: str
+    ) -> Iterator[proto.Participation]:
+        content = self._kv.get("snapshot_contents", snapshot) or {"participations": []}
+        for pid in content["participations"]:
+            obj = self._kv.get(f"participations/{aggregation}", pid)
+            if obj is None:
+                raise Invalid("inconsistent snapshot: missing participation")
+            yield proto.Participation.from_obj(obj)
+
+    def count_participations_snapshot(self, aggregation: str, snapshot: str) -> int:
+        content = self._kv.get("snapshot_contents", snapshot) or {"participations": []}
+        return len(content["participations"])
+
+    def iter_snapshot_clerk_jobs_data(
+        self, aggregation: str, snapshot: str, clerks_number: int
+    ) -> Iterator[list[proto.Encryption]]:
+        """Transpose participations into per-clerk encryption lists, streaming.
+
+        The [participants x clerks] -> [clerks x participants] regrouping
+        (stores.rs:86-101). Unlike the reference's default impl — which
+        builds the whole clerks x participations matrix in RAM, the reason
+        its Mongo backend exists (aggregations.rs:164-195) — this yields one
+        clerk's column at a time, so peak memory is O(participants), not
+        O(participants x clerks). The trade is read amplification: each
+        clerk's pass re-reads (and re-parses, on JsonDir) every snapped
+        participation, i.e. O(clerks x participants) KV gets total. At
+        protocol committee sizes (≤ tens of clerks) that is the right
+        trade; backends with large committees should transpose
+        server-side instead. Backends that can transpose server-side
+        (Mongo's $unwind/$group pipeline) expose
+        ``transpose_clerk_encryptions`` on the KV and are delegated to.
+        """
+        kv_transpose = getattr(self._kv, "transpose_clerk_encryptions", None)
+        if kv_transpose is not None:
+            content = self._kv.get("snapshot_contents", snapshot) or {"participations": []}
+            for column in kv_transpose(
+                f"participations/{aggregation}", content["participations"], clerks_number
+            ):
+                yield [proto.Encryption.from_obj(e) for e in column]
+            return
+        for ix in range(clerks_number):
+            column = []
+            for participation in self.iter_snapped_participations(aggregation, snapshot):
+                if ix < len(participation.clerk_encryptions):
+                    column.append(participation.clerk_encryptions[ix][1])
+            yield column
+
+    def create_snapshot_mask(self, snapshot: str, mask: list[proto.Encryption]) -> None:
+        self._kv.put("snapshot_masks", snapshot, [e.to_obj() for e in mask])
+
+    def get_snapshot_mask(self, snapshot: str) -> Optional[list[proto.Encryption]]:
+        obj = self._kv.get("snapshot_masks", snapshot)
+        if obj is None:
+            return None
+        return [proto.Encryption.from_obj(e) for e in obj]
+
+    # ------------------------------------------------------ clerking jobs
+
+    def enqueue_clerking_job(self, job: proto.ClerkingJob) -> None:
+        self._kv.put(f"jobs/queue/{job.clerk}", job.id, job.to_obj())
+
+    def poll_clerking_job(self, clerk: str) -> Optional[proto.ClerkingJob]:
+        ids = self._kv.keys(f"jobs/queue/{clerk}")
+        if not ids:
+            return None
+        obj = self._kv.get(f"jobs/queue/{clerk}", ids[0])
+        return proto.ClerkingJob.from_obj(obj) if obj else None
+
+    def get_clerking_job(self, clerk: str, job: str) -> Optional[proto.ClerkingJob]:
+        obj = self._kv.get(f"jobs/queue/{clerk}", job)
+        if obj is None:
+            obj = self._kv.get(f"jobs/done/{clerk}", job)
+        return proto.ClerkingJob.from_obj(obj) if obj else None
+
+    def create_clerking_result(self, result: proto.ClerkingResult) -> None:
+        """Store result, then move job queue -> done (clerking_jobs.rs:51-58)."""
+        with self._lock:
+            job_obj = self._kv.get(f"jobs/queue/{result.clerk}", result.job)
+            if job_obj is None:
+                if self._kv.get(f"jobs/done/{result.clerk}", result.job) is not None:
+                    return  # idempotent re-submit
+                raise Invalid("job not found for result")
+            snapshot = job_obj["snapshot"]
+            self._kv.put(f"jobs/results/{snapshot}", result.job, result.to_obj())
+            self._kv.put(f"jobs/done/{result.clerk}", result.job, job_obj)
+            self._kv.delete(f"jobs/queue/{result.clerk}", result.job)
+
+    def list_results(self, snapshot: str) -> list[str]:
+        return self._kv.keys(f"jobs/results/{snapshot}")
+
+    def get_result(self, snapshot: str, job: str) -> Optional[proto.ClerkingResult]:
+        obj = self._kv.get(f"jobs/results/{snapshot}", job)
+        return proto.ClerkingResult.from_obj(obj) if obj else None
+
+
+def MemoryStores() -> Stores:
+    """Ephemeral in-memory backend (tests, benchmarks)."""
+    return Stores(_MemoryKV())
+
+
+def JsonDirStores(root: str) -> Stores:
+    """Durable one-file-per-record backend (jfs parity)."""
+    return Stores(_JsonDirKV(root))

@@ -1,4 +1,5 @@
-"""Shared utilities: error types and device timing."""
+"""Shared utilities: error types, device timing and the H100 roofline, the
+varint codec and logging."""
 
 from sda_tpu_torch.utils.errors import Invalid, InvalidCredentials, PermissionDenied, SdaError
 

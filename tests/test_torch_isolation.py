@@ -14,18 +14,33 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax_and_no_reference():
+    """Importing every submodule loads neither JAX nor the JAX package, maps
+    neither libsodium nor the native library, and builds nothing (no
+    compiler process is started)."""
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, pkgutil, subprocess, sys
         before = set(sys.modules)  # an interpreter hook may preload modules
+
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"a process was started at import: {args[:1]}")
+
+        subprocess.Popen = subprocess.run = refuse
         import sda_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(sda_tpu_torch.__path__, "sda_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        bad = sorted(m for m in set(sys.modules) - before
-                     if m == "jax" or m.startswith("jax.") or m == "sda_tpu" or m.startswith("sda_tpu."))
-        print(len(names), bad)
+        bad = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in ("jax", "sda_tpu"))
+        with open("/proc/self/maps") as maps:
+            mapped = sorted({line.split()[-1] for line in maps
+                             if "libsodium" in line or "libsda_native" in line})
+        from sda_tpu_torch import sodium
+        from sda_tpu_torch.utils import varint
+        print(len(names), bad, mapped)
         assert not bad, bad
+        assert not mapped, mapped
+        assert sodium._lib.cache_info().currsize == 0
+        assert varint._NATIVE is varint._UNLOADED
         """
     )
     proc = subprocess.run(
@@ -33,7 +48,7 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[0])
-    assert count >= 20  # every submodule of the slices was imported
+    assert count >= 39  # every submodule of the slices was imported
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -106,6 +121,80 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
             masker.combine([[1, 2, 3, 4]])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FullMasker(p).combine([[1, 2], [3, 4]])
+
+
+def test_new_entry_points_need_a_card_unless_asked_for_cpu():
+    """The probe tools' measuring functions, the protocol client's device
+    routes and masker_for_scheme: with no card they raise unless asked for
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from sda_tpu_torch import protocol as proto
+    from sda_tpu_torch.client import Keystore, MemoryStore, SdaClient, new_agent
+    from sda_tpu_torch.masking import ChaChaMasker, FullMasker, NoneMasker, masker_for_scheme
+    from sda_tpu_torch.ops import probes
+    from sda_tpu_torch.server import new_memory_server
+    from sda_tpu_torch.tools import (
+        measure_combine_crossover,
+        measure_config3_variants,
+        measure_lane_batch_floor,
+        measure_latency_floor,
+    )
+    from sda_tpu_torch.utils.profiling import cuda_time_samples
+
+    for measure in (lambda **kw: measure_latency_floor.measure(dimension=30, participants=4,
+                                                               jobs=2, **kw),
+                    lambda **kw: measure_lane_batch_floor.measure(dimension=30, participants=4,
+                                                                  jobs=8, **kw),
+                    lambda **kw: measure_config3_variants.measure(dimension=30, total=8, **kw),
+                    lambda **kw: measure_combine_crossover.measure(shapes=((4, 5),), **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            measure()
+    assert measure_latency_floor.measure(dimension=30, participants=4, jobs=2,
+                                         device="cpu")["device"] == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_time_samples(lambda i: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        measure_latency_floor.main()
+    assert measure_combine_crossover.main() == 1  # reports the missing card, exits non-zero
+    x = torch.zeros((8, 128), dtype=torch.int8)
+    assert probes.probe_t1(x, 4, 1)[0].device.type == "cpu"
+
+    p = (1 << 63) - 871
+    for scheme, cls in ((proto.ChaChaMasking(p, 16, 128), ChaChaMasker),
+                        (proto.FullMasking(p), FullMasker)):
+        masker = masker_for_scheme(scheme)
+        assert isinstance(masker, cls)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            masker.combine([masker.mask(np.arange(16))[0]] * 2)
+        cpu = masker_for_scheme(scheme, device="cpu")
+        assert len(cpu.combine([cpu.mask(np.arange(16))[0]] * 2)) == 16
+    assert isinstance(masker_for_scheme(proto.NoMasking()), NoneMasker)
+
+    service = new_memory_server()
+    ks = Keystore(MemoryStore())
+    recipient = SdaClient(new_agent(ks), ks, service, device_bulk_threshold=1)
+    rkey = recipient.new_encryption_key()
+    recipient.upload_agent()
+    recipient.upload_encryption_key(rkey)
+    agg = proto.Aggregation(
+        id=proto.new_id(), title="no card", vector_dimension=4, modulus=433,
+        recipient=recipient.agent.id, recipient_key=rkey, masking_scheme=proto.NoMasking(),
+        committee_sharing_scheme=proto.AdditiveSharing(share_count=2, modulus=433),
+    )
+    recipient.upload_aggregation(agg)
+    ks1 = Keystore(MemoryStore())
+    clerk = SdaClient(new_agent(ks1), ks1, service)
+    clerk.upload_agent()
+    clerk.upload_encryption_key(clerk.new_encryption_key())
+    recipient.begin_aggregation(agg.id)
+    ks2 = Keystore(MemoryStore())
+    participant = SdaClient(new_agent(ks2), ks2, service, device_bulk_threshold=1)
+    participant.upload_agent()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        participant.participate(np.array([1, 2, 3, 4]), agg.id)
+    participant.device = "cpu"
+    participant.participate(np.array([1, 2, 3, 4]), agg.id)
 
 
 def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
