@@ -9,22 +9,30 @@ Phases, each of which raises on failure:
    (the three variants of ``mxu8.cu``, ``chacha.cu``, ``mxu7.cu`` and
    ``planar_cios.cu``, one nvcc each, all started together; set-up), print
    ptxas's registers and spills for every instantiation, the SASS opcode
-   counts (``cuobjdump -sass``) of the ChaCha, planar and headline mxu7
-   kernels, and the card's name and power limit. The B6 and B7 bounds count
-   the instructions of these listings' generator and participant loops;
+   counts (``cuobjdump -sass``) of the ChaCha, planar and headline mxu7 and
+   mxu8 kernels, and the card's name and power limit. The B1-B3, B6 and B7
+   bounds count the instructions of the built kernels' generator and
+   participant loops;
 2. compare: at a mid shape (16 participants per chunk, 3,000 dimensions,
    lanes=1024) run each kernel on the card and its plain version on CPU
    copies of the same inputs at four moduli, in caller-randomness and PRNG
    mode; every output must be bit-equal. B1: with and without fused
    reconstruction, rand_participants = P and 1. B2: 2 and 3 chunks, with
    and without reconstruction. B3: onto a non-zero canonical accumulator.
-   B2 must also equal the B1 + B3 streaming loop at the same seed (PRNG);
+   B2 must also equal the B1 + B3 streaming loop at the same seed (PRNG).
+   Then the ring cases (``RING_CASES``: K below one tile, below the ring's
+   depth and not a multiple of 64, other randomness draw counts, 128 bits,
+   lanes past NBP, the narrower copy paths, the ones row inside the MMA's
+   tiles), each through B1, B2 with 3 chunks and B3, bit-equal;
 3. headline: ``FederatedAggregation.packed_64bit(dimension=1_000_002)`` with
    768 participants through ``engine.aggregate_mxu8_kernel``: one step with
    the launch counters reset before and read after, the reveal checked on
    the first 128 lanes against the modular participant sum, the plain
    version run on the card at the same shape and compared, then timed
-   steps with CUDA events;
+   steps with CUDA events; the launch's shared memory per block and blocks
+   per SM (the CUDA occupancy calculator) and its instance's ptxas
+   registers and spills; the bound is the largest of bytes, int8
+   operations and the Philox calls' SASS instructions at the issue rate;
 4. config 3: ``packed_128bit(dimension=10_002)``, 2 chunks x 512
    participants, lanes 512, through ``engine.aggregate_mxu8_kernel_chunked``:
    exactly one B2 launch for the step, the reveal on the first 512 lanes,
@@ -333,9 +341,10 @@ def _only(**launches) -> dict:
     return {name: launches.get(name, 0) for name in _counts()}
 
 
-def _engines(dimension: int):
+def _engines(dimension: int, names=None):
     """Packed Shamir (3, 8, 4) engines at the four moduli of the reference's
-    byte-limb tests: p433, a generic 62-bit prime, 2^63 - 871, 2^127 - 1495."""
+    byte-limb tests: p433, a generic 62-bit prime, 2^63 - 871, 2^127 - 1495
+    (or those of them in ``names``)."""
     from sda_tpu_torch.engine import TorchAggregationEngine
     from sda_tpu_torch.fields import find_prime_field, find_special_prime_field
     from sda_tpu_torch.sharing import PackedShamirScheme
@@ -350,8 +359,117 @@ def _engines(dimension: int):
         name: TorchAggregationEngine(
             PackedShamirScheme(3, 8, 4, p, w2, w3).device_spec(), dimension, device=DEVICE
         )
-        for name, (p, w2, w3) in params.items()
+        for name, (p, w2, w3) in params.items() if names is None or name in names
     }
+
+
+# Shapes that stress the K loop's ring of 64-row tiles (4 stages) and its
+# ragged edges, at 16 x 3 x 8 = 384 rows per 16 participants in PRNG mode
+# (x 7/3 with caller randomness): (what, modulus, participants, dimension,
+# lanes, rand_participants). NBP = ceil(dimension / 3) rounded up to lanes,
+# so lanes 16 leaves a block's last lanes past NBP, lanes 4 and 1 take the
+# 4-byte and the byte copies of sec, and p433's 12 rows the 4-byte copies
+# of bigS. The kernel sums the all-ones row n * L8 apart from the MMA; with
+# the additive scheme (1 secret, 3 clerks: 24 rows) that row lies inside
+# the MMA's m16 tiles, with packed Shamir (64 or 128 rows) just past them.
+RING_CASES = (
+    ("K below one tile, P=1", "p63special", 1, 300, 16, None),
+    ("K below one tile, P=2", "p63special", 2, 300, 16, None),
+    ("K between one tile and the ring, not a multiple of 64", "p63special", 5, 300, 16, None),
+    ("K of 3 tiles and 24 rows", "p63special", 9, 300, 128, None),
+    ("rp=1", "p63special", 16, 300, 16, 1),
+    ("rp=4", "p63special", 16, 300, 16, 4),
+    ("rp=7", "p63special", 16, 300, 16, 7),
+    ("128-bit, 4 word groups", "p127special", 3, 300, 16, 2),
+    ("NBP=100: 4-byte sec copies", "p63special", 5, 300, 4, None),
+    ("NBP=101: byte sec copies", "p63special", 5, 303, 1, None),
+    ("K=12: 4-byte bigS copies", "p433", 2, 300, 16, None),
+    ("ones row inside the MMA's tiles (additive, 3 clerks)", "additive61", 4, 300, 16, None),
+)
+
+
+def _ring_inputs(dimension: int, n_parts: int, seed: int):
+    """For each modulus of the ring cases at ``dimension``: the engine, and
+    ``n_parts`` encoded secrets with and without caller randomness."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.engine import TorchAggregationEngine
+    from sda_tpu_torch.sharing import AdditiveScheme
+
+    engines = _engines(dimension, {c[1] for c in RING_CASES})
+    engines["additive61"] = TorchAggregationEngine(
+        AdditiveScheme(share_count=3, modulus=(1 << 61) - 1).device_spec(), dimension, device=DEVICE
+    )
+    out = {}
+    for name, eng in engines.items():
+        rng = np.random.default_rng(seed)
+        secrets = eng.encode_secrets(
+            rng.integers(0, min(eng.ctx.p, 1 << 62), size=(n_parts, dimension))
+        )
+        out[name] = (eng, secrets, torch.cat([secrets, eng.random_ext(n_parts, rng=rng)], dim=2))
+    return out
+
+
+def _ring_plans(eng, rows: int, P: int, rec, rp, n_chunks: int = 1):
+    """The same plan on the card and on the CPU."""
+    from sda_tpu_torch.ops import mxu8 as m8
+
+    spec = eng.spec
+    return [m8.mxu8_plan(eng.mxu8, spec.share_matrix, rows, P, spec.secret_count,
+                         spec.randomness_count, reconstruct_matrix=rec, rand_participants=rp,
+                         device=device, n_chunks=n_chunks)
+            for device in (DEVICE, "cpu")]
+
+
+def _max_err(got, want) -> int:
+    import torch
+
+    return int((got.cpu().to(torch.int64) - want.cpu().to(torch.int64)).abs().max())
+
+
+def phase_compare_ring():
+    """B1, B2 (3 chunks) and B3 (onto a non-zero accumulator) on the card
+    against their plain versions on CPU copies at every ring case, in
+    caller-randomness and PRNG mode, with and without fused
+    reconstruction. Returns (cases, max_abs_err) per kernel."""
+    from sda_tpu_torch.ops import mxu8 as m8
+
+    kernels = ("mxu8_fused", "mxu8_chunked", "mxu8_acc")
+    cases, max_err = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
+
+    def check(kernel, got, want, what):
+        err = _max_err(got, want)
+        max_err[kernel] = max(max_err[kernel], err)
+        if err:
+            raise AssertionError(f"{kernel} != plain at ring case {what}: max err {err}")
+        cases[kernel] += 1
+
+    inputs = {dim: _ring_inputs(dim, 3 * max(c[2] for c in RING_CASES), 14)
+              for dim in {c[3] for c in RING_CASES}}
+    for what, name, P, dim, lanes, rp in RING_CASES:
+        eng, secrets, ext = inputs[dim][name]
+        for mode, x in (("ext", ext), ("prng", secrets)):
+            sec8 = m8.planar8_from_batched(eng.mxu8, x[: 3 * P], lanes)
+            rows = sec8.shape[0] // 3
+            mode_rp = rp if mode == "prng" else None
+            label = f"{what} ({name}, {mode}, NBP={sec8.shape[1]}, K={rows})"
+            for rec in (None, eng.spec.reconstruct_matrix):
+                plan, plan_cpu = _ring_plans(eng, rows, P, rec, mode_rp)
+                seed = 2000 + sum(cases.values())
+                check("mxu8_fused", m8.run_mxu8(plan, sec8[:rows], seed),
+                      m8.run_mxu8(plan_cpu, sec8[:rows].cpu(), seed), label)
+                plan, plan_cpu = _ring_plans(eng, rows, P, rec, mode_rp, n_chunks=3)
+                check("mxu8_chunked", m8.run_mxu8(plan, sec8, seed, lanes=lanes),
+                      m8.run_mxu8(plan_cpu, sec8.cpu(), seed, lanes=lanes), label)
+            plan, plan_cpu = _ring_plans(eng, rows, P, None, mode_rp)
+            acc = m8.run_mxu8(plan, sec8[:rows], 7)
+            if not int(acc.count_nonzero()):
+                raise AssertionError(f"the accumulator of ring case {label} is zero")
+            check("mxu8_acc", m8.run_mxu8(plan, sec8[rows : 2 * rows], 8, acc_in=acc.clone()),
+                  m8.run_mxu8(plan_cpu, sec8[rows : 2 * rows].cpu(), 8, acc_in=acc.cpu().clone()),
+                  label)
+    return cases, max_err
 
 
 def phase_compare(P: int = 16, dimension: int = 3000):
@@ -480,14 +598,13 @@ def phase_compare_chunked(P: int = 16, dimension: int = 3000):
     return cases, max_err
 
 
-def phase_headline(iters: int = 20):
+def phase_headline(mhz: float, iters: int = 20):
     import torch
 
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
-    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
-                                             reveal_check_slice)
+    from sda_tpu_torch.tools._common import make_planar_secrets, mxu8_cost, reveal_check_slice
 
     model = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM)
     engine = model.engine
@@ -537,12 +654,13 @@ def phase_headline(iters: int = 20):
     )
     t_rp1 = cuda_time(lambda i: m8.run_mxu8(plan_rp1, sec8, i), iters=iters, warmup=3)
     cost = mxu8_cost(plan, nbp)
-    bound_ms, bound_by = bound([cost])
+    bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz)
     philox_words = float(nbp) * plan.rp * plan.words_per_p
     return {
         "launches": launches, "timing": t, "plain_ms": t_plain.median_ms, "max_abs_err": err,
         "step_ms": step_ms, "rp1_ms": t_rp1.median_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "parts": parts, "philox_call_ops": call_ops,
+        "launch": _launch_report(plan, nbp),
         "bytes": cost[0], "int8_ops": cost[1], "philox_words": philox_words,
         "shape": f"P={HEADLINE_P} dim={HEADLINE_DIM} rows={rows} NBP={nbp}",
     }
@@ -577,15 +695,14 @@ def _trace(fn):
     return (busy_us + hi - lo) / 1e3, wall_ms, len(spans)
 
 
-def phase_config3(iters: int = 20):
+def phase_config3(mhz: float, iters: int = 20):
     """128-bit, 2 chunks x 512 participants in ONE B2 launch."""
     import torch
 
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
-    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
-                                             reveal_check_slice)
+    from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
 
     c = CONFIG3
     engine = FederatedAggregation.packed_128bit(dimension=c["dimension"]).engine
@@ -620,16 +737,17 @@ def phase_config3(iters: int = 20):
                                                        lanes=lanes),
         iters=iters, warmup=3,
     )
-    bound_ms, bound_by = bound([mxu8_cost(plan, nbp)])
+    bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz)
     return {
         "launches": counts["mxu8_chunked"], "timing": t, "plain_ms": t_plain.median_ms,
-        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by, "parts": parts,
+        "philox_call_ops": call_ops, "launch": _launch_report(plan, nbp),
         "shape": f"P={n_chunks}x{p_chunk} dim={c['dimension']} 128-bit rows={rows}/chunk "
                  f"NBP={nbp} lanes={lanes}",
     }
 
 
-def phase_config4(iters: int = 5):
+def phase_config4(mhz: float, iters: int = 5):
     """10,752 participants x 1,000,002 dimensions streamed in 14 chunks:
     B1 for the first chunk, B3 for the other 13, B1 for the reconstruction."""
     import torch
@@ -695,11 +813,12 @@ def phase_config4(iters: int = 5):
     acc_cost = mxu8_cost(plan, nbp, acc=True)
     step_costs = [mxu8_cost(plan, nbp)] + [acc_cost] * (n_chunks - 1) + [mxu8_cost(rec_plan, nbp)]
     step_bound_ms, step_bound_by = bound(step_costs)
-    bound_ms, bound_by = bound([acc_cost])
+    bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz, acc=True)
     return {
         "launches": counts["mxu8_acc"], "fused_launches": counts["mxu8_fused"], "timing": t_acc,
         "plain_ms": t_plain.median_ms, "max_abs_err": err,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "parts": parts, "philox_call_ops": call_ops,
+        "launch": _launch_report(plan, nbp, acc=True),
         "step": t_step, "host_step_ms": host_step_ms, "kernel_sum_ms": kernel_sum_ms,
         "first_ms": t_first.median_ms, "rec_ms": t_rec.median_ms,
         "idle_share": max(0.0, 1 - kernel_sum_ms / host_step_ms),
@@ -712,7 +831,7 @@ def phase_config4(iters: int = 5):
     }
 
 
-def phase_serving(iters: int = 20):
+def phase_serving(mhz: float, iters: int = 20):
     """512 small jobs side by side on the lane axis, one B1 launch, in both
     randomness modes."""
     import torch
@@ -720,8 +839,7 @@ def phase_serving(iters: int = 20):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
-    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
-                                             reveal_check_slice)
+    from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
 
     c = SERVING
     engine = FederatedAggregation.packed_64bit(dimension=c["dimension"]).engine
@@ -758,9 +876,9 @@ def phase_serving(iters: int = 20):
                                                         combined_randomness=combined),
             iters=iters, warmup=3,
         )
-        bound_ms, bound_by = bound([mxu8_cost(plan, nbp)])
+        bound_ms, bound_by, parts, _ = _mxu8_bound(plan, nbp, mhz)
         res[combined] = {"launches": counts["mxu8_fused"], "timing": t, "max_abs_err": err,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                         "bound_ms": bound_ms, "bound_by": bound_by, "parts": parts}
     res["shape"] = f"{n_jobs} jobs x P={P} dim={c['dimension']} NBP={nbp}"
     return res
 
@@ -1205,6 +1323,54 @@ def _mxu7_bound(plan, nbp: int, mhz: float):
              "philox": _int32_bound(calls * _philox_call_ops(plan), mhz)}
     bound = max(parts.values())
     return bound, "bytes" if parts["bytes"] == bound else "operations", parts
+
+
+def _mxu8_philox_call_ops(variant: str, mt: int) -> int:
+    """SASS instructions per Philox call of a built mxu8 variant's MT
+    instance: the body of the one innermost loop around the generator (the
+    draw loop after the K loop is not unrolled: one call per iteration)."""
+    bodies = _innermost_philox_loops(_sass_listing(*_variants()[variant])[f"MT{mt}"])
+    if len(bodies) != 1:
+        raise AssertionError(f"found {len(bodies)} Philox loops in {variant} MT{mt}'s SASS, not 1")
+    return len(bodies[0])
+
+
+def _mxu8_bound(plan, nbp: int, mhz: float, acc: bool = False):
+    """A B1/B2/B3 launch's least time: the largest of its bytes over the
+    HBM rate, its int8 operations over the tensor-core rate
+    (``tools._common.mxu8_cost``) and its Philox calls (one per lane, draw
+    and word group of every chunk) times the launched instance's SASS
+    instructions per call over the SMs' issue rate. Returns (ms, "bytes" or
+    "operations", the three parts in ms, instructions per call)."""
+    from sda_tpu_torch.ops.mxu8 import _variant, kernel_mt
+    from sda_tpu_torch.tools._common import mxu8_cost
+
+    nbytes, ops = mxu8_cost(plan, nbp, acc=acc)
+    calls = float(nbp) * plan.rp * -(-plan.words_per_p // 4) * plan.n_chunks
+    call_ops = _mxu8_philox_call_ops(_variant(plan, acc), kernel_mt(plan)) if calls else 0
+    parts = {"bytes": nbytes / PEAK_BYTES * 1e3, "int8": ops / PEAK_INT8 * 1e3,
+             "philox": _int32_bound(calls * call_ops, mhz)}
+    bound = max(parts.values())
+    return bound, "bytes" if parts["bytes"] == bound else "operations", parts, call_ops
+
+
+def _launch_report(plan, nbp: int, acc: bool = False) -> dict:
+    """Shared memory per block and resident blocks per SM of the launch
+    (the CUDA occupancy calculator), and ptxas's registers and spilled
+    bytes of the instance it launches."""
+    from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.ops.cuda_build import ptxas_report
+
+    smem, blocks = m8.kernel_occupancy(plan, nbp, acc)
+    mt = m8.kernel_mt(plan)
+    regs, spill = _ptxas_spills(ptxas_report(*_variants()[m8._variant(plan, acc)]))[f"MT{mt}"]
+    return {"smem_bytes": smem, "blocks_per_sm": blocks, "instance": f"MT{mt}",
+            "registers": regs, "spill_bytes": spill}
+
+
+def _launch_text(r: dict) -> str:
+    return (f"{r['smem_bytes']} B shared memory per block, {r['blocks_per_sm']} blocks per SM, "
+            f"{r['instance']} {r['registers']} registers / {r['spill_bytes']} B spilled")
 
 
 def phase_compare_mxu7(P: int = 16, P_grouped: int = 131, dimension: int = 3000):
@@ -1759,7 +1925,7 @@ def main() -> int:
     from sda_tpu_torch.ops.cuda_build import ptxas_report
 
     variants = _variants()
-    for variant in ("mxu7_fused", "planar_cios"):
+    for variant in ("mxu8_fused", "mxu8_acc", "mxu8_chunked", "mxu7_fused", "planar_cios"):
         spills = _ptxas_spills(ptxas_report(*variants[variant]))
         listed = " ".join(f"{k}:{regs} registers/{sp} B spilled"
                           for k, (regs, sp) in spills.items())
@@ -1767,7 +1933,8 @@ def main() -> int:
     from sda_tpu_torch.ops.chacha_kernel import KERNEL_VARIANTS as CHACHA_VARIANTS
 
     sass = {**_sass_listing(*CHACHA_VARIANTS["chacha"]), **_sass_listing(*variants["planar_cios"]),
-            "MT5": _sass_listing(*variants["mxu7_fused"])["MT5"]}
+            "MT5": _sass_listing(*variants["mxu7_fused"])["MT5"],
+            "mxu8 MT4": _sass_listing(*variants["mxu8_fused"])["MT4"]}  # the headline's
     for kernel, instrs in sass.items():
         top = ", ".join(f"{op} {n}" for op, n in _opcode_counts(instrs).most_common(6))
         print(f"build: sass {kernel}: {len(instrs)} instructions ({top})", flush=True)
@@ -1778,27 +1945,41 @@ def main() -> int:
     cases2, cmp_err2 = phase_compare_chunked()
     print(f"compare: B2 {cases2['mxu8_chunked']} cases (2 and 3 chunks, with the streaming-loop "
           f"check) and B3 {cases2['mxu8_acc']} cases bit-equal at the mid shape", flush=True)
+    ring_cases, ring_err = phase_compare_ring()
+    print(f"compare: ring cases ({len(RING_CASES)} shapes: K below one tile, below the ring, not "
+          f"a multiple of 64; rp=1, 4 and 7; 128-bit; NBP past the last block; 4-byte and byte "
+          f"copies; ones row inside the MMA's tiles): B1 {ring_cases['mxu8_fused']}, B2 (3 "
+          f"chunks) {ring_cases['mxu8_chunked']}, B3 {ring_cases['mxu8_acc']} cases bit-equal",
+          flush=True)
+    cmp_err = max(cmp_err, ring_err["mxu8_fused"])
+    for kernel in ("mxu8_chunked", "mxu8_acc"):
+        cmp_err2[kernel] = max(cmp_err2[kernel], ring_err[kernel])
 
-    h = phase_headline()
+    mhz = max_sm_mhz()
+    h = phase_headline(mhz)
     t = h["timing"]
     print(f"headline: {h['shape']} on {card}: median {t.median_ms:.4f} ms "
           f"(min {t.min_ms:.4f}, max {t.max_ms:.4f}, {len(t.samples_ms)} steps), "
           f"{HEADLINE_P / (t.median_ms / 1e3):.0f} aggregations/s; bound {h['bound_ms']:.4f} ms "
-          f"({h['bound_by']}); plain on card {h['plain_ms']:.1f} ms; launches {h['launches']}",
-          flush=True)
+          f"({h['bound_by']}: bytes {h['parts']['bytes']:.4f}, int8 {h['parts']['int8']:.4f}, "
+          f"Philox issue {h['parts']['philox']:.4f} at {h['philox_call_ops']} SASS instructions "
+          f"per call); plain on card {h['plain_ms']:.1f} ms; launches {h['launches']}; "
+          f"{_launch_text(h['launch'])}", flush=True)
     print(f"headline: back-to-back step {h['step_ms']:.4f} ms on the host clock "
           f"(device idle share {max(0.0, 1 - t.median_ms / h['step_ms']):.4f}); "
           f"with rand_participants=1 {h['rp1_ms']:.4f} ms", flush=True)
 
-    c3 = phase_config3()
+    c3 = phase_config3(mhz)
     t3 = c3["timing"]
     total3 = CONFIG3["n_chunks"] * CONFIG3["p_chunk"]
     print(f"config 3: {c3['shape']} on {card}: one B2 launch, median {t3.median_ms:.4f} ms "
           f"(min {t3.min_ms:.4f}, max {t3.max_ms:.4f}, {len(t3.samples_ms)} steps), "
           f"{total3 / (t3.median_ms / 1e3):.0f} aggregations/s; bound {c3['bound_ms']:.4f} ms "
-          f"({c3['bound_by']}); plain on card {c3['plain_ms']:.1f} ms; reveal exact", flush=True)
+          f"({c3['bound_by']}; Philox issue {c3['parts']['philox']:.4f} at "
+          f"{c3['philox_call_ops']} per call); plain on card {c3['plain_ms']:.1f} ms; reveal exact; "
+          f"{_launch_text(c3['launch'])}", flush=True)
 
-    c4 = phase_config4()
+    c4 = phase_config4(mhz)
     s4 = c4["step"]
     total4 = CONFIG4["n_chunks"] * CONFIG4["p_chunk"]
     print(f"config 4: {c4['shape']} on {card}: B1 x {c4['fused_launches']} + B3 x "
@@ -1809,7 +1990,9 @@ def main() -> int:
           f"reveal exact", flush=True)
     print(f"config 4: B3 launch median {c4['timing'].median_ms:.4f} ms (min "
           f"{c4['timing'].min_ms:.4f}, max {c4['timing'].max_ms:.4f}), bound "
-          f"{c4['bound_ms']:.4f} ms ({c4['bound_by']}), plain on card {c4['plain_ms']:.1f} ms; "
+          f"{c4['bound_ms']:.4f} ms ({c4['bound_by']}; Philox issue {c4['parts']['philox']:.4f} at "
+          f"{c4['philox_call_ops']} per call; {_launch_text(c4['launch'])}), plain on card "
+          f"{c4['plain_ms']:.1f} ms; "
           f"first chunk (B1) {c4['first_ms']:.4f} ms, reconstruction {c4['rec_ms']:.4f} ms; "
           f"back-to-back step {c4['host_step_ms']:.4f} ms on the host clock, kernels "
           f"{c4['kernel_sum_ms']:.4f} ms, device idle share {c4['idle_share']:.4f}", flush=True)
@@ -1822,19 +2005,19 @@ def main() -> int:
               f"({c4['traced_activities']} device activities), device idle share "
               f"{c4['traced_idle_share']:.4f}", flush=True)
 
-    sv = phase_serving()
+    sv = phase_serving(mhz)
     for combined in (False, True):
         r = sv[combined]
         ts = r["timing"]
         print(f"serving: {sv['shape']} combined_randomness={combined} on {card}: one launch, "
               f"median {ts.median_ms:.4f} ms (min {ts.min_ms:.4f}, max {ts.max_ms:.4f}), "
               f"{SERVING['jobs'] / (ts.median_ms / 1e3):.0f} jobs/s; bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); jobs 0, 1, {SERVING['jobs'] - 1} revealed exactly", flush=True)
+              f"({r['bound_by']}; Philox issue {r['parts']['philox']:.4f}); jobs 0, 1, "
+              f"{SERVING['jobs'] - 1} revealed exactly", flush=True)
 
     fwd_s = phase_forward()
     print(f"forward: CIOS forward, 32 x {HEADLINE_DIM}, revealed exactly in {fwd_s:.3f} s", flush=True)
 
-    mhz = max_sm_mhz()
     cc = phase_compare_chacha()
     m4, m5 = cc["mid4"], cc["mid5"]
     print(f"chacha compare: B4 {cc['cases']['chacha_keystream']} cases, expand_masks_device "
@@ -1993,6 +2176,10 @@ def main() -> int:
             "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"],
+            "bound_parts_ms": h["parts"],
+            "philox_call_sass": h["philox_call_ops"],
+            "sm_mhz": mhz,
+            **h["launch"],
             "library_ms": None,
             "shape": h["shape"],
             "step_ms": h["step_ms"],
@@ -2019,6 +2206,9 @@ def main() -> int:
             "plain_ms": c3["plain_ms"],
             "bound_ms": c3["bound_ms"],
             "bound_by": c3["bound_by"],
+            "bound_parts_ms": c3["parts"],
+            "philox_call_sass": c3["philox_call_ops"],
+            **c3["launch"],
             "library_ms": None,
             "shape": c3["shape"],
         },
@@ -2035,6 +2225,9 @@ def main() -> int:
             "plain_ms": c4["plain_ms"],
             "bound_ms": c4["bound_ms"],
             "bound_by": c4["bound_by"],
+            "bound_parts_ms": c4["parts"],
+            "philox_call_sass": c4["philox_call_ops"],
+            **c4["launch"],
             "library_ms": None,
             "shape": c4["shape"],
             "config4_step_ms": s4.median_ms,

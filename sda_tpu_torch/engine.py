@@ -572,14 +572,19 @@ class TorchAggregationEngine:
 
     def encode_secrets(self, secrets) -> torch.Tensor:
         """``[P, d]`` ints -> ``[P, nb, k, L]`` limb tensor on the engine's
-        device (zero-padding the tail batch). Integer numpy input below a
-        63-bit modulus takes the vectorised int64 path."""
+        device (zero-padding the tail batch). Integer numpy input whose
+        values fit int64 takes the vectorised int64 path below a 63-bit
+        modulus; uint64 values of 2^63 and more take the object path, which
+        reduces the true value mod p."""
         arr = np.asarray(secrets)
         p_count, d = arr.shape
         if d != self.dimension:
             raise ValueError("dimension mismatch")
         k = self.spec.secret_count
-        if arr.dtype.kind in "iu" and self.ctx.p < (1 << 63):
+        fits_i64 = arr.dtype.kind == "i" or (
+            arr.dtype.kind == "u" and (arr.dtype.itemsize < 8 or arr.size == 0 or arr.max() < (1 << 63))
+        )
+        if fits_i64 and self.ctx.p < (1 << 63):
             padded = np.zeros((p_count, self.nb * k), dtype=np.int64)
             padded[:, :d] = arr
             return self.ctx.encode_i64(padded.reshape(p_count, self.nb, k), self.device)

@@ -2,15 +2,15 @@
 // three variants of one kernel body, chosen at build time by SDA_MXU8_MODE
 // (one shared library per variant, see ops/cuda_build.py):
 //
-//   0  B1, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel: one participant chunk,
+//   0  B1, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel (:454): one participant chunk,
 //      the canonical result written to out.
-//   1  B3, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_acc (host-driven
+//   1  B3, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_acc (:474, host-driven
 //      streaming): B1, then the canonical result is added mod p onto out,
 //      which holds the running sums on entry (the caller's acc_in: the same
 //      buffer is input and output). Each thread reads its own limbs of out
 //      before it stores their sum to the same addresses, so the in-place
 //      update needs no synchronisation.
-//   2  B2, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_chunked: n_chunks
+//   2  B2, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_chunked (:496): n_chunks
 //      stacked participant chunks reduced in ONE launch. The TPU walked the
 //      chunks as a sequential grid axis with a VMEM accumulator; here each
 //      block loops over the chunks itself, runs B1's whole pipeline on rows
@@ -29,17 +29,26 @@
 //   out[l * n_out + i, b] = limb l of the canonical result i (pseudo-Mersenne
 //                           fold, or Montgomery chunk fold)
 //
-// Design (first, simple, correct cut):
+// Design:
 //   * One block of 256 threads (8 warps) per tile of kT = 128 lanes; blocks
 //     are independent (the TPU grid carried nothing across lane blocks
 //     either; B2's chunk reduction stays inside the block).
 //   * Stage-1 contraction on the int8 tensor cores with
 //     mma.sync.m16n8k32.s32.s8.s8.s32. Each warp owns 16 lanes (two n8
-//     tiles) and all MT m16 tiles of output rows. K streams in tiles of 64
-//     rows: bigS's tile is staged in shared memory as is (rows are K
-//     contiguous), and sec's tile, which is lane-contiguous in device memory,
-//     is transposed to K-contiguous while it is staged (4x4 byte transposes
-//     with __byte_perm), so the 6 GB operand is never transposed in memory.
+//     tiles) and the MT m16 tiles of the n * L8 output rows before the
+//     all-ones row of bigS (MT = 4 at 64 bits). K streams in tiles of kKT =
+//     64 rows through a ring of kStages = 4 shared-memory stages
+//     (sda_common.cuh, "cp.async ring"), three in flight while the MMA runs
+//     on the fourth, with one block barrier per tile. A stage holds the raw
+//     sec tile (64 rows x 128 lanes, lane-contiguous as in device memory,
+//     16-byte cp.async.cg, zero-filled past K and past NBP) and its 64
+//     columns of bigS's MT * 16 rows and ones row (16-byte copies from L2;
+//     8 or 4 when K is not a multiple of 16). Each warp transposes its own
+//     16 lanes of the landed raw tile into the K-contiguous sB rows that
+//     mma.sync reads (4x4 byte transposes with __byte_perm, a __syncwarp, no
+//     block barrier), so the 6 GB operand is never transposed in memory;
+//     the same transposed words give the ones row's sums with dp4a, which
+//     spares the MMA a fifth m16 tile at 64 bits.
 //   * Randomness: Philox4x32-10 (sda_common.cuh), one stream per
 //     (lane, participant draw, word group): key = (seed, 0), counter =
 //     (global lane, draw, word group, 0); output word q of a call is PRNG
@@ -47,25 +56,38 @@
 //     accO += w >> 16, then accE = accR - (accO << 16), all uint32. The
 //     biased bytes of accE / accO, in the (c, parity, w) row order of the
 //     randomness-sum matrix, are the B operand of a second MMA pass against
-//     bigR.
-//   * Epilogue: the accumulator is spilled to shared memory; two threads per
-//     lane run the carry chains, the optional stage-2 contraction (88 x 25 at
-//     the headline, scalar), the fold, and the limb-major output writes.
+//     bigR (its ones row again with dp4a). The draws run after the K loop:
+//     spread over the loop instead (each tile making its share of them, the
+//     sums in registers) they made every tile's iteration, barrier to
+//     barrier, carry the generator's multiplies too, and the kernel was
+//     slower on the H100 (PERF.md, the kernel's findings).
+//   * Epilogue: the accumulator is spilled to shared memory (over the ring);
+//     two threads per lane run the carry chains, the optional stage-2
+//     contraction (88 x 25 at the headline, scalar), the fold, and the
+//     limb-major output writes.
 //
 // Bounds on the H100 SXM. B1 at the headline (768 participants, 1,000,002
 // dims, p = 2^63 - 871): sec is 18,432 x 333,824 int8 = 6.15 GB read once,
 // about 1.84 ms at 3.35 TB/s; the contractions are 1.19e12 int8 operations,
-// about 0.6 ms at 1,979 TOPS; the randomness is 2.05e9 Philox words on the
-// CUDA cores. B3 adds a read and a write of the running sums (43 MB at that
-// shape) to B1's bytes. B2 reads every chunk once; at the 128-bit config-3
-// shape (2 x 512 participants, NBP 3,584) sec is 0.176 GB, so its bound is
-// about 0.05 ms, but 3,584 lanes make only 28 blocks for 132 SMs, so the
-// kernel is bound by too few blocks long before bytes. This design does
-// nothing yet about these bounds: no cp.async/TMA pipelining of the sec
-// stream, no wgmma, no split of K across blocks for narrow jobs, and a full
-// ten-round Philox per four words. Those are later work.
+// about 0.6 ms at 1,979 TOPS; the randomness is 5.13e8 Philox calls (768
+// draws x 2 word groups per lane), about 0.7 ms of instruction issue at 128
+// lanes a clock per SM, so bytes bound it. The kernel before the ring
+// loaded each tile with plain loads, then a barrier, then the MMA, with
+// nothing in flight during the MMA: 8.1 ms, while a copy probe through the
+// same grid and tile (T2) streams at 2.98 TB/s. With the ring the K loop
+// no longer waits on memory round trips; what holds it now (a timing
+// breakdown on the card) is the loop's own work, one phase after another
+// between the barriers: the MMA and its fragment loads, the copies, the
+// transposes. B3 adds a read and a write of the running sums (43 MB at
+// that shape) to B1's bytes. B2 reads every chunk once; at the 128-bit
+// config-3 shape (2 x 512 participants, NBP 3,584) sec is 0.176 GB, so its
+// bound is about 0.05 ms, but 3,584 lanes make only 28 blocks for 132 SMs,
+// so the kernel is bound by too few blocks long before bytes; a split of K
+// across blocks is later work.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "sda_common.cuh"
@@ -230,30 +252,94 @@ __device__ void fold_and_emit(const uint32_t* bytes, int nb, const Params& p,
 
 // ------------------------------------------------------------------ kernel
 
+constexpr int kStages = 4;  // ring depth: three tiles in flight beside the MMA
+
+// Shared memory of one block (host and device agree through this struct):
+//   [sCanon (B2 only)] [union]
+//   union, in the K loop and the bigR pass: [ring: kStages stages of
+//     (raw sec tile | bigS slice: MT * 16 rows, then the ones row)]
+//     [sB: kT rows x sb bytes]
+//   union, in the epilogue: [sAcc: spilled accumulator] [sB1: stage-2 bytes]
+struct Layout {
+  int sb;           // sB row stride (== 16 mod 32)
+  int stage_bytes;  // one ring stage
+  int canon_bytes;  // B2's canonical accumulator
+  int spill_bytes;  // sAcc
+  int smem;         // the whole block
+  int vec_a;        // bigS copy width: 16, 8 or 4
+  int vec_b;        // sec copy width: 16, 4 or 1
+};
+
+template <int MT>
+Layout make_layout(const Params& p, const void* sec, const void* bigs) {
+  Layout l;
+  l.sb = (p.Kr_pad > kKT ? p.Kr_pad : kKT) + 16;
+  l.stage_bytes = kRawBytes + (MT * 16 + 1) * kSA;
+  l.canon_bytes = kMode == kChunked ? p.L * (p.n2 ? p.n2 : p.n) * kT * 4 : 0;
+  l.spill_bytes = (p.n * p.L8 + 1) * kT * 4;
+  const int loop_bytes = kStages * l.stage_bytes + kT * l.sb;
+  const int epi_bytes = l.spill_bytes + (p.n2 ? p.rows2 * kT : 0);
+  l.smem = l.canon_bytes + ((loop_bytes > epi_bytes ? loop_bytes : epi_bytes) + 15) / 16 * 16;
+  const auto a = reinterpret_cast<uintptr_t>(bigs), s = reinterpret_cast<uintptr_t>(sec);
+  l.vec_a = (p.K % 16 == 0 && a % 16 == 0) ? 16 : (p.K % 8 == 0 && a % 8 == 0) ? 8 : 4;
+  l.vec_b = (p.nbp % 16 == 0 && s % 16 == 0) ? 16 : (p.nbp % 4 == 0 && s % 4 == 0) ? 4 : 1;
+  return l;
+}
+
+// Start the copies of K tile tt (sec rows and bigS columns [tt * kKT, +kKT):
+// bigS rows [0, MT * 16) and the ones row n * L8) into its ring stage.
+template <int MT>
+__device__ __forceinline__ void issue_tile(unsigned char* ring, const Layout& lay,
+                                           const int8_t* sec, const int8_t* bigs, const Params& p,
+                                           int tt, int lane0, int tid) {
+  int8_t* raw = reinterpret_cast<int8_t*>(ring + (tt % kStages) * lay.stage_bytes);
+  const int k0 = tt * kKT;
+  if (lay.vec_b == 16)
+    ring_load_raw<16>(raw, sec, p.K, p.nbp, k0, lane0, tid);
+  else if (lay.vec_b == 4)
+    ring_load_raw<4>(raw, sec, p.K, p.nbp, k0, lane0, tid);
+  else
+    ring_load_raw<1>(raw, sec, p.K, p.nbp, k0, lane0, tid);
+  int8_t* sA = raw + kRawBytes;
+  const int ones = p.n * p.L8;
+  if (lay.vec_a == 16)
+    ring_load_a<16>(sA, bigs, p.K, MT * 16, ones, k0, tid);
+  else if (lay.vec_a == 8)
+    ring_load_a<8>(sA, bigs, p.K, MT * 16, ones, k0, tid);
+  else
+    ring_load_a<4>(sA, bigs, p.K, MT * 16, ones, k0, tid);
+}
+
 template <int MT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
                   const int8_t* __restrict__ bigr, const int8_t* __restrict__ big2,
                   const uint32_t* __restrict__ tables, int32_t* __restrict__ out, Params p,
-                  int sb, int stage_bytes) {
+                  Layout lay) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sA = reinterpret_cast<int8_t*>(smem);
-  int8_t* sB = sA + MT * 16 * kSA;
-  uint8_t* sB1 = smem;  // stage-1 bytes for stage 2, reuses the tiles' space
-  int32_t* sAcc = reinterpret_cast<int32_t*>(smem + stage_bytes);
+  // B2's canonical accumulator, kept across chunks; the union after it
+  uint32_t* sCanon = reinterpret_cast<uint32_t*>(smem);
+  unsigned char* un = smem + lay.canon_bytes;
+  unsigned char* ring = un;
+  int8_t* sB = reinterpret_cast<int8_t*>(un + kStages * lay.stage_bytes);
+  int32_t* sAcc = reinterpret_cast<int32_t*>(un);
+  uint8_t* sB1 = un + lay.spill_bytes;  // stage-1 bytes for stage 2
+  const int sb = lay.sb;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lane0 = blockIdx.x * kT;
-  const int rows_used = p.n * p.L8 + 1;
+  const int ones_row = p.n * p.L8;  // the all-ones row of bigS and bigR, the last one used
   const int n_out = p.n2 ? p.n2 : p.n;
-  // B2's canonical accumulator, past the spill area
-  uint32_t* sCanon = reinterpret_cast<uint32_t*>(sAcc + rows_used * kT);
   const int nch = MODE == kChunked ? p.n_chunks : 1;
+  const int T = (p.K + kKT - 1) / kKT;
+  const int groups = (p.wpp + 3) / 4;
 
   for (int ch = 0; ch < nch; ++ch) {
     const int8_t* sec_c = MODE == kChunked ? sec + (size_t)ch * p.K * p.nbp : sec;
     const uint32_t seed_c = MODE == kChunked ? p.seed + (uint32_t)ch * p.seed_stride : p.seed;
     const bool first = ch == 0, last = ch == nch - 1;
+    // the previous chunk's epilogue is done with the union
+    if (!first) __syncthreads();
 
     int acc[MT][2][4];
 #pragma unroll
@@ -262,26 +348,43 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+    // the ones row's sums for lanes 16 warp + 4 (lane & 3) + x, over this
+    // thread's k quads (dp4a in the transpose; the MMA covers rows < MT * 16)
+    int ones[4] = {0, 0, 0, 0};
 
-    // stage 1: bigS^T . sec (the barrier at the top of each tile also
-    // orders the previous chunk's epilogue before this chunk's staging)
-    for (int k0 = 0; k0 < p.K; k0 += kKT) {
-      __syncthreads();
-      load_a_tile(sA, bigs, p.K, p.n_pad, MT * 16, k0, tid);
-      load_b_tile(sB, sb, sec_c, p.K, p.nbp, k0, lane0, tid);
-      __syncthreads();
-      const int ksteps = (min(kKT, p.K - k0) + 31) / 32;
-      mma_chunk<MT>(acc, sA, sB, sb, 0, ksteps, warp, lane);
+    // stage 1: bigS^T . sec through the ring
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < T) issue_tile<MT>(ring, lay, sec_c, bigs, p, s, lane0, tid);
+      cp_async_commit();
     }
+    for (int t = 0; t < T; ++t) {
+      cp_async_wait<kStages - 2>();  // tile t has landed (this thread's copies)
+      __syncthreads();               // ... every thread's, and tile t - 1's stage is free
+      if (t + kStages - 1 < T) issue_tile<MT>(ring, lay, sec_c, bigs, p, t + kStages - 1, lane0, tid);
+      cp_async_commit();
+      const int8_t* raw = reinterpret_cast<const int8_t*>(ring + (t % kStages) * lay.stage_bytes);
+      ring_transpose_b(sB, sb, raw, raw + kRawBytes + MT * 16 * kSA, ones, warp, lane);
+      __syncwarp();
+      mma_chunk<MT>(acc, raw + kRawBytes, sB, sb, 0, (min(kKT, p.K - t * kKT) + 31) / 32, warp,
+                    lane);
+    }
+    cp_async_wait<0>();
+    // every thread of a lane quad's column (lane & 3) holds part of its sums
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) ones[x] += __shfl_xor_sync(0xFFFFFFFFu, ones[x], m);
 
     // in-kernel randomness: u16-field sums over rp draws -> biased bytes
+    int rand_ones = 0;
     if (p.Kr > 0) {
-      __syncthreads();
-      const int groups = (p.wpp + 3) / 4;
+      __syncthreads();  // every warp is done with its sB rows
       for (int idx = tid; idx < kT * groups; idx += kThreads) {
         const int ll = idx % kT, g = idx / kT, gl = lane0 + ll;
         uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
         if (gl < p.nbp) {
+          // one call per iteration: chip_smoke.py counts this loop's SASS
+#pragma unroll 1
           for (int j = 0; j < p.rp; ++j) {
             uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
             philox4x32_10(c, seed_c, 0u);
@@ -305,15 +408,24 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
           }
         }
       }
+      int8_t* sA = reinterpret_cast<int8_t*>(ring + kRawBytes);  // stage 0's bigS slice
       for (int kc = 0; kc < p.Kr_pad; kc += kKT) {
         __syncthreads();
         load_a_tile(sA, bigr, p.Kr_pad, p.n_pad, MT * 16, kc, tid);
         __syncthreads();
         mma_chunk<MT>(acc, sA, sB, sb, kc, min(kKT, p.Kr_pad - kc) / 32, warp, lane);
       }
+      // the ones row of bigR against lane tid's randomness bytes
+      if (tid < kT) {
+        const int* w1 = reinterpret_cast<const int*>(bigr + (size_t)ones_row * p.Kr_pad);
+        const int* b = reinterpret_cast<const int*>(sB + tid * sb);
+        for (int c = 0; c < p.Kr_pad / 4; ++c) rand_ones = __dp4a(b[c], w1[c], rand_ones);
+      }
     }
+    __syncthreads();  // the spill below overwrites the ring and sB
 
-    // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8
+    // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8; the ones
+    // row from the dp4a sums (and, in PRNG mode, bigR's part added after)
     {
       const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -321,18 +433,24 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
-          if (r < rows_used) {
+          if (r < ones_row) {
             sAcc[r * kT + col] = acc[mt][nt][0];
             sAcc[r * kT + col + 1] = acc[mt][nt][1];
           }
-          if (r + 8 < rows_used) {
+          if (r + 8 < ones_row) {
             sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
             sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
           }
         }
+      if (g == 0)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sAcc[ones_row * kT + warp * 16 + 4 * t + x] = ones[x];
     }
     __syncthreads();
-
+    if (p.Kr > 0) {
+      if (tid < kT) sAcc[ones_row * kT + tid] += rand_ones;
+      __syncthreads();
+    }
     // epilogue: two threads per lane
     const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
     const int L8 = p.L8;
@@ -394,36 +512,60 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
 }
 
 template <int MT>
+int set_smem(const Layout& lay) {
+  return (int)cudaFuncSetAttribute(mxu8_fused_kernel<MT, kMode>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+}
+
+template <int MT>
 int launch(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, const int8_t* big2,
            const uint32_t* tables, int32_t* out, const Params& p, cudaStream_t stream) {
-  const int sb = (p.Kr_pad > kKT ? p.Kr_pad : kKT) + 16;  // == 16 mod 32
-  int stage_bytes = MT * 16 * kSA + kT * sb;
-  const int b1_bytes = p.n2 ? p.rows2 * kT : 0;
-  if (b1_bytes > stage_bytes) stage_bytes = b1_bytes;
-  stage_bytes = (stage_bytes + 15) & ~15;
-  size_t smem = (size_t)stage_bytes + (size_t)(p.n * p.L8 + 1) * kT * sizeof(int32_t);
-  if (kMode == kChunked) smem += (size_t)p.L * (p.n2 ? p.n2 : p.n) * kT * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(mxu8_fused_kernel<MT, kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const Layout lay = make_layout<MT>(p, sec, bigs);
+  const int err = set_smem<MT>(lay);
+  if (err) return err;
   const dim3 grid((p.nbp + kT - 1) / kT);
-  mxu8_fused_kernel<MT, kMode><<<grid, kThreads, smem, stream>>>(sec, bigs, bigr, big2, tables,
-                                                                 out, p, sb, stage_bytes);
+  mxu8_fused_kernel<MT, kMode><<<grid, kThreads, lay.smem, stream>>>(sec, bigs, bigr, big2, tables,
+                                                                     out, p, lay);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <int MT>
+int occupancy(const Params& p, int* smem_bytes, int* blocks_per_sm) {
+  const Layout lay = make_layout<MT>(p, nullptr, nullptr);
+  const int err = set_smem<MT>(lay);
+  if (err) return err;
+  *smem_bytes = lay.smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, mxu8_fused_kernel<MT, kMode>, kThreads, lay.smem);
+}
 
-// C entry point of the variant this library was built as (SDA_MXU8_MODE).
-// iparams holds the kNParams ints of Params in field order (seed and
-// seed_stride as their 32-bit patterns). For B3, out holds the running sums
-// on entry. Returns a cudaError_t (0 on success).
-extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* bigr,
-                              const void* big2, const void* tables, void* out,
-                              const void* iparams, int n_iparams, void* stream) {
+// f(std::integral_constant<int, MT>) for the m16 tiles of output rows the
+// MMA computes: the n * L8 rows before the ones row (the ones row itself,
+// the last of at most 192, is summed with dp4a).
+template <typename F>
+int with_mt(const Params& p, F&& f) {
+  if (p.n * p.L8 + 1 > 192) return (int)cudaErrorInvalidValue;
+  switch ((p.n * p.L8 + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 11: return f(std::integral_constant<int, 11>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// iparams (kNParams ints of Params in field order) -> p; a cudaError_t.
+int parse_params(const void* iparams, int n_iparams, Params& p) {
   if (n_iparams != kNParams) return (int)cudaErrorInvalidValue;
   const int* v = static_cast<const int*>(iparams);
-  Params p;
   p.K = v[0];
   p.nbp = v[1];
   p.n_pad = v[2];
@@ -455,8 +597,23 @@ extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* big
   p.seed_stride = (uint32_t)v[28];
   if (p.n_chunks < 1 || (kMode != kChunked && p.n_chunks != 1)) return (int)cudaErrorInvalidValue;
   if (p.L > kMaxL || p.L8 + (p.n_res1 > p.n_res2 ? p.n_res1 : p.n_res2) > kMaxB ||
-      (p.K & 3) || (p.Kr_pad & 31))
+      p.K < 4 || (p.K & 3) || (p.Kr_pad & 31))
     return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+}  // namespace
+
+// C entry point of the variant this library was built as (SDA_MXU8_MODE).
+// iparams holds the kNParams ints of Params in field order (seed and
+// seed_stride as their 32-bit patterns). For B3, out holds the running sums
+// on entry. Returns a cudaError_t (0 on success).
+extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* bigr,
+                              const void* big2, const void* tables, void* out,
+                              const void* iparams, int n_iparams, void* stream) {
+  Params p;
+  const int bad = parse_params(iparams, n_iparams, p);
+  if (bad) return bad;
   const auto* s = static_cast<const int8_t*>(sec);
   const auto* a = static_cast<const int8_t*>(bigs);
   const auto* r = static_cast<const int8_t*>(bigr);
@@ -464,19 +621,18 @@ extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* big
   const auto* tb = static_cast<const uint32_t*>(tables);
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  switch ((p.n * p.L8 + 1 + 15) / 16) {
-    case 1: return launch<1>(s, a, r, b2, tb, o, p, st);
-    case 2: return launch<2>(s, a, r, b2, tb, o, p, st);
-    case 3: return launch<3>(s, a, r, b2, tb, o, p, st);
-    case 4: return launch<4>(s, a, r, b2, tb, o, p, st);
-    case 5: return launch<5>(s, a, r, b2, tb, o, p, st);
-    case 6: return launch<6>(s, a, r, b2, tb, o, p, st);
-    case 7: return launch<7>(s, a, r, b2, tb, o, p, st);
-    case 8: return launch<8>(s, a, r, b2, tb, o, p, st);
-    case 9: return launch<9>(s, a, r, b2, tb, o, p, st);
-    case 10: return launch<10>(s, a, r, b2, tb, o, p, st);
-    case 11: return launch<11>(s, a, r, b2, tb, o, p, st);
-    case 12: return launch<12>(s, a, r, b2, tb, o, p, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_mt(p, [&](auto mt) { return launch<decltype(mt)::value>(s, a, r, b2, tb, o, p, st); });
+}
+
+// The launch configuration sda_mxu8_fused would use for these parameters:
+// dynamic shared memory per block and resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a cudaError_t.
+extern "C" int sda_mxu8_occupancy(const void* iparams, int n_iparams, int* smem_bytes,
+                                  int* blocks_per_sm) {
+  Params p;
+  const int bad = parse_params(iparams, n_iparams, p);
+  if (bad) return bad;
+  return with_mt(p, [&](auto mt) {
+    return occupancy<decltype(mt)::value>(p, smem_bytes, blocks_per_sm);
+  });
 }

@@ -1,8 +1,9 @@
 // Device code shared by the port's kernels (each .cu file is its own build
 // and includes this header): the Philox4x32-10 generator, 16-bit-limb
 // Montgomery arithmetic, and the int8 tensor-core pipeline of the fused
-// kernels (mxu8.cu, mxu7.cu): tile staging into shared memory and
-// mma.sync.m16n8k32.s32.s8.s8.s32 over those tiles.
+// kernels (mxu8.cu, mxu7.cu): tile staging into shared memory (plain loads,
+// or the cp.async ring of mxu8.cu) and mma.sync.m16n8k32.s32.s8.s8.s32 over
+// those tiles.
 #pragma once
 
 #include <cstdint>
@@ -179,6 +180,118 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[MT][2][4], const int8_t* sA
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) mma_s8(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
     }
+  }
+}
+
+// ------------------------------------------------------ cp.async ring
+//
+// The pipelined form of the staging above (mxu8.cu): each ring stage holds
+// a raw sec tile (kKT rows x kT lanes, lane-contiguous as in device memory)
+// and the matching kKT columns of the A matrix, copied with cp.async while
+// the tensor cores work on an earlier stage. Each warp transposes its own
+// 16 lanes of a landed raw tile into sB, so the transpose needs no block
+// barrier.
+
+constexpr int kRawBytes = kKT * kT;  // one raw sec tile, 8 KB
+
+// cp.async of 16, 8 or 4 bytes; the bytes past src_bytes (0 or the size)
+// are zero-filled and not read.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int size, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (size == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else if (size == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte chunk c of raw row r lies at chunk c ^ ((r >> 2) & 7) of the row:
+// a warp's transposing reads (one chunk, rows of eight k quads) then fall
+// on 32 distinct banks.
+__device__ __forceinline__ int raw_chunk(int r, int c) { return c ^ ((r >> 2) & 7); }
+
+// Start the copy of rows [0, rows) x columns [col0, col0 + kKT) of a
+// row-major int8 matrix with lda columns into sA (row stride kSA), and of
+// row extra_row into row `rows` of sA; zero past lda. VEC (16, 8 or 4)
+// divides lda and the matrix's address.
+template <int VEC>
+__device__ __forceinline__ void ring_load_a(int8_t* sA, const int8_t* A, int lda, int rows,
+                                            int extra_row, int col0, int tid) {
+  constexpr int kPerRow = kKT / VEC;
+  for (int idx = tid; idx < (rows + 1) * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, c = idx % kPerRow, col = col0 + c * VEC;
+    const bool in = col < lda;
+    const int src_row = r < rows ? r : extra_row;
+    cp_async(sA + r * kSA + c * VEC, in ? A + (size_t)src_row * lda + col : A, VEC, in ? VEC : 0);
+  }
+}
+
+// Start the copy of sec rows [k0, k0 + kKT) x lanes [lane0, lane0 + kT) into
+// the raw tile, zero past K and past nbp. VEC 16 or 4 (dividing nbp and
+// sec's address) copies with cp.async; VEC 1 with plain byte loads and
+// stores, which the block barrier after the wait publishes all the same.
+template <int VEC>
+__device__ __forceinline__ void ring_load_raw(int8_t* raw, const int8_t* sec, int K, int nbp,
+                                              int k0, int lane0, int tid) {
+  constexpr int kPerRow = kT / VEC;
+  for (int idx = tid; idx < kKT * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, c = idx % kPerRow, k = k0 + r, lane = lane0 + c * VEC;
+    const bool in = k < K && lane < nbp;
+    int8_t* dst = raw + r * kT + 16 * raw_chunk(r, (c * VEC) >> 4) + ((c * VEC) & 15);
+    if constexpr (VEC == 1)
+      *dst = in ? sec[(size_t)k * nbp + lane] : (int8_t)0;
+    else
+      cp_async(dst, in ? sec + (size_t)k * nbp + lane : sec, VEC, in ? VEC : 0);
+  }
+}
+
+// Warp `warp`'s 16 lanes of a landed raw tile into rows [16 warp, 16 warp +
+// 16) of sB (row stride sb, sb / 4 == 4 mod 8), K-contiguous, with 4x4 byte
+// transposes: the bytes load_b_tile stores, read from shared memory instead
+// of device memory. Lane quads 1 and 2 store their four rows in the order
+// 2, 3, 0, 1, so that each store instruction hits 32 distinct banks. Each
+// transposed word (4 k of one lane) also adds its dot product with the
+// tile's row w1 (kKT int8 weights) into wsum[x] of its lane 4 (lane & 3) + x.
+__device__ __forceinline__ void ring_transpose_b(int8_t* sB, int sb, const int8_t* raw,
+                                                 const int8_t* w1, int (&wsum)[4], int warp,
+                                                 int lane) {
+  const int lq = lane & 3, sw = sb / 4;
+  const bool swap = ((lq ^ (lq >> 1)) & 1) != 0;
+  const int x0 = swap ? 2 : 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int kq = (lane >> 2) + 8 * j;
+    const uint32_t* src =
+        reinterpret_cast<const uint32_t*>(raw + 4 * kq * kT + 16 * (warp ^ (kq & 7))) + lq;
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = src[i * (kT / 4)];
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+    const uint32_t o[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                           __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+    const int w = *reinterpret_cast<const int*>(w1 + 4 * kq);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) wsum[x] = __dp4a((int)o[x], w, wsum[x]);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(sB + (warp * 16 + 4 * lq) * sb + 4 * kq);
+    dst[x0 * sw] = swap ? o[2] : o[0];
+    dst[(x0 + 1) * sw] = swap ? o[3] : o[1];
+    dst[(x0 ^ 2) * sw] = swap ? o[0] : o[2];
+    dst[((x0 ^ 2) + 1) * sw] = swap ? o[1] : o[3];
   }
 }
 

@@ -84,6 +84,8 @@ __all__ = [
     "philox4x32_10",
     "philox_words",
     "KERNEL_VARIANTS",
+    "kernel_mt",
+    "kernel_occupancy",
 ]
 
 _W8 = 8
@@ -707,6 +709,36 @@ def _fused_share_combine_mxu8_plain(
 # ------------------------------------------------------------------ kernel
 
 
+def _kernel_params(plan: Mxu8Plan, nbp: int, seed: int, seed_stride: int) -> np.ndarray:
+    """The kernel's ``Params`` as ``csrc/mxu8.cu`` reads them: int32, in
+    field order, the seeds as their 32-bit patterns."""
+    mxu8 = plan.mxu8
+    L, L8 = mxu8.ctx.L, mxu8.L8
+    e, c = mxu8.special or (0, 0)
+    off_c2 = plan.n * L8
+    off_consts = off_c2 + plan.n2 * L8
+    off_p = off_consts + plan.consts.shape[0] * L
+    return np.array([
+        plan.rows, nbp, plan.n_pad, plan.Kr, plan.bigr.shape[1], plan.n, L8,
+        plan.n_res1, plan.n2, plan.big2.shape[0], plan.big2.shape[1], plan.n_res2,
+        L, mxu8.chunk8, int(plan.use_special), e, c, mxu8.ctx.p_inv_w,
+        plan.rp, plan.words_per_p, plan.n_bytes,
+        np.uint32(seed & _M32).view(np.int32), 0, off_c2, off_consts, off_p,
+        plan.consts.shape[0], plan.n_chunks, np.uint32(seed_stride & _M32).view(np.int32),
+    ], dtype=np.int32)
+
+
+def _variant(plan: Mxu8Plan, acc: bool) -> str:
+    return "mxu8_chunked" if plan.n_chunks > 1 else "mxu8_acc" if acc else "mxu8_fused"
+
+
+def kernel_mt(plan: Mxu8Plan) -> int:
+    """The ``MT`` template instance of ``csrc/mxu8.cu`` that a launch with
+    this plan runs: the m16 tiles of the ``n * L8`` output rows before the
+    ones row, which the kernel sums apart."""
+    return -(-(plan.n * plan.mxu8.L8) // 16)
+
+
 def _launch_mxu8_kernel(
     plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int, acc_in
 ) -> torch.Tensor:
@@ -723,27 +755,15 @@ def _launch_mxu8_kernel(
     mxu8 = plan.mxu8
     if (plan.n * mxu8.L8 + 1 + 15) // 16 > 12:
         raise ValueError("n * L8 + 1 > 192 output rows: not supported by the kernel")
-    variant = "mxu8_chunked" if plan.n_chunks > 1 else "mxu8_acc" if acc_in is not None else "mxu8_fused"
+    variant = _variant(plan, acc_in is not None)
     lib = load_kernel_library(*KERNEL_VARIANTS[variant])
     fn = lib.sda_mxu8_fused
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     nbp = sec.shape[1]
-    L, L8 = mxu8.ctx.L, mxu8.L8
-    e, c = mxu8.special or (0, 0)
-    off_c2 = plan.n * L8
-    off_consts = off_c2 + plan.n2 * L8
-    off_p = off_consts + plan.consts.shape[0] * L
-    params = np.array([
-        plan.rows, nbp, plan.n_pad, plan.Kr, plan.bigr.shape[1], plan.n, L8,
-        plan.n_res1, plan.n2, plan.big2.shape[0], plan.big2.shape[1], plan.n_res2,
-        L, mxu8.chunk8, int(plan.use_special), e, c, mxu8.ctx.p_inv_w,
-        plan.rp, plan.words_per_p, plan.n_bytes,
-        np.uint32(seed & _M32).view(np.int32), 0, off_c2, off_consts, off_p,
-        plan.consts.shape[0], plan.n_chunks, np.uint32(seed_stride & _M32).view(np.int32),
-    ], dtype=np.int32)
+    params = _kernel_params(plan, nbp, seed, seed_stride)
     if acc_in is None:
-        out = torch.empty((L * plan.n_out, nbp), dtype=torch.int32, device=sec.device)
+        out = torch.empty((mxu8.ctx.L * plan.n_out, nbp), dtype=torch.int32, device=sec.device)
     else:
         out = acc_in  # B3 reads the running sums from out and adds onto them
     with torch.cuda.device(sec.device):
@@ -762,6 +782,25 @@ def _launch_mxu8_kernel(
     else:
         mxu8_launches += 1
     return out
+
+
+def kernel_occupancy(plan: Mxu8Plan, nbp: int, acc: bool = False) -> tuple[int, int]:
+    """(dynamic shared memory per block in bytes, resident blocks per SM)
+    of the kernel launch a CUDA call of ``run_mxu8`` with this plan makes at
+    ``nbp`` lanes (``acc``: with ``acc_in``), from the CUDA runtime's
+    occupancy calculator on the current device. Launches nothing."""
+    from sda_tpu_torch.ops.cuda_build import load_kernel_library
+
+    variant = _variant(plan, acc)
+    fn = load_kernel_library(*KERNEL_VARIANTS[variant]).sda_mxu8_occupancy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    params = _kernel_params(plan, nbp, 0, 0)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(params.ctypes.data, len(params), ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{variant} occupancy query failed: cudaError {err}")
+    return smem.value, blocks.value
 
 
 def run_mxu8(

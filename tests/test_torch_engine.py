@@ -63,6 +63,46 @@ def test_engine_aggregate_matches_reference(scheme):
     ]
 
 
+def _encode_both(values, monkeypatch):
+    """``values`` through the reference's and the port's ``encode_secrets``
+    at ``packed_64bit(dimension=3)`` (p = 2^63 - 871); also whether the
+    port took its vectorised int64 path."""
+    from sda_tpu.models import FederatedAggregation as RefAggregation
+
+    ref = RefAggregation.packed_64bit(dimension=3).engine
+    eng = FederatedAggregation.packed_64bit(dimension=3, device="cpu").engine
+    assert eng.ctx.p == (1 << 63) - 871
+    calls = []
+    fast = type(eng.ctx).encode_i64
+    monkeypatch.setattr(type(eng.ctx), "encode_i64",
+                        lambda *a, **kw: calls.append(1) or fast(*a, **kw))
+    want = np.asarray(ref.encode_secrets(values)).astype(np.int64)
+    return want, eng.encode_secrets(values).numpy(), bool(calls)
+
+
+def test_encode_secrets_uint64_past_int64_matches_reference(monkeypatch):
+    """uint64 values of 2^63 and more are reduced mod p as the reference
+    reduces them (they used to wrap to negatives on the int64 path)."""
+    from sda_tpu_torch.ops.limbs import LimbContext
+
+    values = np.array([[1 << 63, (1 << 64) - 1, 5]], dtype=np.uint64)
+    want, got, fast = _encode_both(values, monkeypatch)
+    assert np.array_equal(got, want)
+    assert not fast
+    ctx = LimbContext.create((1 << 63) - 871)
+    assert [int(x) for x in ctx.decode_i64(got.reshape(-1, 4))] == [871, 1741, 5]
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.uint64, np.uint32])
+def test_encode_secrets_int_arrays_take_the_fast_path(dtype, monkeypatch):
+    """Integer arrays whose values fit int64 keep the vectorised path and
+    equal the reference."""
+    values = np.array([[0, 12345, (1 << 31) - 1]], dtype=dtype)
+    want, got, fast = _encode_both(values, monkeypatch)
+    assert np.array_equal(got, want)
+    assert fast
+
+
 def test_stage_outputs_reconstruct_on_host():
     """Device shares decode to values the host scheme reconstructs."""
     import torch

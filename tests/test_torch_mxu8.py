@@ -246,3 +246,56 @@ def test_guards_match_reference():
         t_m8.fused_share_combine_mxu8(mxu8, M, ok, 2, 3, 4, lanes=8, acc_in=ok)
     with pytest.raises(ValueError, match="too small"):
         t_m8.Mxu8Context.create(LimbContext.create(251))
+
+
+def test_kernel_params_follow_the_kernels_field_order():
+    """The int32 array the launcher passes is csrc/mxu8.cu's Params field by
+    field: as many entries as kNParams, each at the index the kernel's
+    parser reads it from, the seeds as their 32-bit patterns."""
+    import re
+    from pathlib import Path
+
+    src = (Path(t_m8.__file__).parent / "csrc" / "mxu8.cu").read_text()
+    n_params = int(re.search(r"constexpr int kNParams = (\d+);", src).group(1))
+    fields = {name: int(i) for name, i in re.findall(r"p\.(\w+) = (?:\(uint32_t\))?v\[(\d+)\];", src)}
+    assert sorted(fields.values()) == list(range(n_params))
+    _, eng = _pair("p63special")
+    spec = eng.spec
+    rows = 5 * spec.secret_count * eng.mxu8.L8
+    plan = t_m8.mxu8_plan(eng.mxu8, spec.share_matrix, rows, 5, spec.secret_count,
+                          spec.randomness_count, reconstruct_matrix=spec.reconstruct_matrix,
+                          n_chunks=2)
+    v = t_m8._kernel_params(plan, 4096, -1, 3 << 30)
+    assert v.dtype == np.int32 and len(v) == n_params
+    want = {"K": rows, "nbp": 4096, "n_chunks": 2, "rp": 5, "wpp": plan.words_per_p,
+            "Kr": plan.Kr, "Kr_pad": plan.bigr.shape[1], "n2": plan.n2,
+            "rows2": plan.big2.shape[1], "n_bytes": plan.n_bytes, "L8": eng.mxu8.L8}
+    assert {k: int(v[fields[k]]) for k in want} == want
+    assert int(np.uint32(v[fields["seed"]])) == 0xFFFFFFFF
+    assert int(np.uint32(v[fields["seed_stride"]])) == 3 << 30
+
+
+def test_philox_call_ops_read_the_one_draw_loop(monkeypatch):
+    """chip_smoke's Philox issue term for B1-B3 counts the body of the one
+    innermost loop around the generator, and refuses a listing with two."""
+    import chip_smoke
+
+    mul = " R4, R2, -0x2daee0ad, RZ"
+    instrs = [
+        (0x00, "MOV", " R1, R2"),
+        (0x10, "IMMA.16832.S8.S8", " R8, R12, R16, R8"),  # K loop 0x10-0x30
+        (0x20, "BAR.SYNC.DEFER_BLOCKING", " 0x0"),
+        (0x30, "BRA", " 0x10"),
+        (0x40, "IMAD.WIDE.U32", mul),  # draw loop 0x40-0x90
+        (0x50, "LOP3.LUT", " R5, R4, R3, RZ, 0x96, !PT"),
+        (0x60, "IADD3", " R6, R6, 0x1, RZ"),
+        (0x70, "IADD3", " R7, R7, 0x1, RZ"),
+        (0x80, "ISETP.GE.AND", " P0, PT, R6, R9, PT"),
+        (0x90, "BRA", " 0x40"),
+    ]
+    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT4": instrs})
+    assert chip_smoke._mxu8_philox_call_ops("mxu8_fused", 4) == 6
+    twice = instrs + [(0xa0, "IMAD.WIDE.U32", mul), (0xb0, "BRA", " 0xa0")]
+    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT4": twice})
+    with pytest.raises(AssertionError, match="found 2 Philox loops"):
+        chip_smoke._mxu8_philox_call_ops("mxu8_fused", 4)
