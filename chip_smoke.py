@@ -77,18 +77,27 @@ Phases, each of which raises on failure:
     dimensions, lanes 1024) and the four moduli of ``_engines``, bit-equal:
     caller randomness, PRNG rand-sum (P = 16) and PRNG grouped (P = 131),
     each combined only, ``out7`` and with fused reconstruction, plus the
-    reconstruct-only call; ``share_mxu`` against the CIOS ``share`` and the
-    ``aggregate_mxu`` reveal (``torch._int_mm``) on the card;
+    reconstruct-only call; then B6's ring cases (``RING7_CASES``: K below
+    one tile, below the ring and not a multiple of 64, several tiles, NBP
+    100 and 101 for the 4-byte and byte copies, lanes past NBP in the last
+    block, the 128-bit field, p433), each in caller-randomness, rand-sum
+    and grouped (``P_GROUPED``) mode, combined, ``out7`` and reconstructed
+    (the reveal checked), plus the reconstruct-only call, bit-equal;
+    ``share_mxu`` against the CIOS ``share`` and the ``aggregate_mxu``
+    reveal (``torch._int_mm``) on the card;
 13. gen-3 headline: ``packed_64bit(dimension=1_000_002)``, 768 participants,
     PRNG mode, through ``engine.aggregate_mxu_kernel``: exactly one B6
     launch for the step, the reveal on the first 128 lanes, the plain
     version on the card at the same shape, 20 steps timed with CUDA
-    events; then the same width in caller-randomness mode (48,384 rows,
-    one launch, reveal-checked);
+    events, the launch's shared memory per block, blocks per SM and its
+    instance's ptxas registers and spills, and the launch's phases timed
+    apart (the K loop without randomness, the randomness behind a one-tile
+    K loop, neither); then the same width in caller-randomness mode
+    (48,384 rows, one launch, reveal-checked);
 14. gen-3 streaming: 14 chunks x 768 (one resident chunk re-read) through
     ``engine.aggregate_mxu_kernel_streaming``: B6 x 15 for the step, the
     reveal on the first 128 lanes, 5 steps timed and the back-to-back step
-    on the host clock;
+    on the host clock, the chunk's and the reconstruction's launch report;
 15. planar compare: ``csrc/planar_cios.cu`` (B7) against its plain version
     on CPU copies at the mid shape, PRNG and caller randomness, at p433,
     the additive scheme mod 2^61 - 1, a 62-bit prime and 2^127 - 1495;
@@ -127,6 +136,7 @@ result.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import json
 import re
@@ -1357,13 +1367,18 @@ def _mxu8_bound(plan, nbp: int, mhz: float, acc: bool = False):
 def _launch_report(plan, nbp: int, acc: bool = False) -> dict:
     """Shared memory per block and resident blocks per SM of the launch
     (the CUDA occupancy calculator), and ptxas's registers and spilled
-    bytes of the instance it launches."""
+    bytes of the instance it launches: a B6 launch for a gen-3 plan, else
+    the B1/B2/B3 variant the plan and ``acc`` select."""
     from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.ops import mxu_kernel as m7
     from sda_tpu_torch.ops.cuda_build import ptxas_report
 
-    smem, blocks = m8.kernel_occupancy(plan, nbp, acc)
-    mt = m8.kernel_mt(plan)
-    regs, spill = _ptxas_spills(ptxas_report(*_variants()[m8._variant(plan, acc)]))[f"MT{mt}"]
+    if isinstance(plan, m7.MxuPlan):
+        (smem, blocks), mt, variant = m7.kernel_occupancy(plan, nbp), m7.kernel_mt(plan), "mxu7_fused"
+    else:
+        smem, blocks = m8.kernel_occupancy(plan, nbp, acc)
+        mt, variant = m8.kernel_mt(plan), m8._variant(plan, acc)
+    regs, spill = _ptxas_spills(ptxas_report(*_variants()[variant]))[f"MT{mt}"]
     return {"smem_bytes": smem, "blocks_per_sm": blocks, "instance": f"MT{mt}",
             "registers": regs, "spill_bytes": spill}
 
@@ -1373,66 +1388,88 @@ def _launch_text(r: dict) -> str:
             f"{r['instance']} {r['registers']} registers / {r['spill_bytes']} B spilled")
 
 
-def phase_compare_mxu7(P: int = 16, P_grouped: int = 131, dimension: int = 3000):
-    """B6 on the card against its plain version on CPU copies at the mid
-    shape and the four moduli; share_mxu and the aggregate_mxu reveal on the
-    card. Returns (cases, max_abs_err, mid-shape times)."""
-    import numpy as np
+def _compare_mxu7(eng, secrets, many, ext, lanes: int, seed0: int, label: str,
+                  timed: bool = False):
+    """B6 on the card against its plain version on CPU copies for one
+    engine: caller randomness (``ext``) and rand-sum (``secrets``) at their
+    participant count, grouped at ``many``'s, each combined only, ``out7``
+    and with fused reconstruction (the reveal checked against the modular
+    sum), plus the reconstruct-only call; ``timed``: the rand-sum launch
+    with reconstruction timed beside its plain version. Returns (cases,
+    max_abs_err, the times or None)."""
     import torch
 
     from sda_tpu_torch.ops import mxu_kernel as m7
     from sda_tpu_torch.utils.profiling import cuda_time
 
+    spec, ctx = eng.spec, eng.ctx
+    k, r, n = spec.secret_count, spec.randomness_count, spec.share_count
+    P = secrets.shape[0]
+    cases, max_err, mid = 0, 0, None
+
+    def check(plans, sec7, seed, what):
+        nonlocal cases, max_err
+        got = m7.run_mxu(plans[0], sec7, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = m7.run_mxu(plans[1], sec7.cpu(), seed)
+        plain_s = time.perf_counter() - t0
+        err = _max_err(got, want)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"mxu7 kernel != plain at {what}: max err {err}")
+        cases += 1
+        return got, plain_s
+
+    runs = [("ext", eng.planar7_ext(ext, lanes), P, secrets),
+            ("sum", eng.planar7_secrets(secrets, lanes), P, secrets),
+            ("grouped", eng.planar7_secrets(many, lanes), many.shape[0], many)]
+    for mode, sec7, p_count, plain_secrets in runs:
+        what = f"{label} ({mode}, NBP={sec7.shape[1]}, K={sec7.shape[0]})"
+        for out7, rec in ((False, None), (True, None), (False, spec.reconstruct_matrix)):
+            plans = [m7.mxu_plan(eng.mxu, spec.share_matrix, sec7.shape[0], p_count, k, r,
+                                 out7=out7, reconstruct_matrix=rec, device=device)
+                     for device in (DEVICE, "cpu")]
+            if mode != "ext" and plans[0].rand_mode != mode:
+                raise AssertionError(f"{what} took {plans[0].rand_mode} mode")
+            got, plain_s = check(plans, sec7, seed0 + cases, f"{what} out7={out7} "
+                                 f"rec={rec is not None}")
+            if rec is not None:
+                out = m7.batched_from_planar16(got, eng.nb)
+                if not torch.equal(out.to(torch.int64), ctx.sum_mod(plain_secrets, axis=0)):
+                    raise AssertionError(f"mxu7 reveal != modular sum at {what}")
+                if timed and mode == "sum":
+                    t = cuda_time(lambda i: m7.run_mxu(plans[0], sec7, i), iters=10, warmup=2)
+                    mid = {"kernel_ms": t.median_ms, "plain_cpu_ms": plain_s * 1e3,
+                           "shape": f"P={P} dim={eng.dimension} NBP={sec7.shape[1]}"}
+    # the reconstruct-only call: one participant, the n clerks as slots
+    comb = eng.mxu_kernel_combined(eng.planar7_ext(ext, lanes), 0, P, lanes)
+    c7 = eng.mxu.limbs7_from_16(comb.permute(0, 2, 1)).permute(0, 2, 1)
+    c7 = c7.reshape(-1, comb.shape[-1]).contiguous()
+    plans = [m7.mxu_plan(eng.mxu, spec.reconstruct_matrix, c7.shape[0], 1, n, 0, device=d)
+             for d in (DEVICE, "cpu")]
+    check(plans, c7, 0, f"{label} (reconstruct-only, NBP={c7.shape[1]})")
+    return cases, max_err, mid
+
+
+def phase_compare_mxu7(P: int = 16, P_grouped: int = 131, dimension: int = 3000):
+    """B6 on the card against its plain version on CPU copies at the mid
+    shape and the four moduli (``_compare_mxu7``); share_mxu and the
+    aggregate_mxu reveal on the card. Returns (cases, max_abs_err,
+    mid-shape times)."""
+    import numpy as np
+    import torch
+
     cases, max_err, mid = 0, 0, {}
     for name, eng in _engines(dimension).items():
-        spec, ctx = eng.spec, eng.ctx
-        k, r, n = spec.secret_count, spec.randomness_count, spec.share_count
+        ctx = eng.ctx
         rng = np.random.default_rng(13)
         secrets = eng.encode_secrets(rng.integers(0, min(ctx.p, 1 << 62), size=(P, dimension)))
         ext = torch.cat([secrets, eng.random_ext(P, rng=rng)], dim=2)
         many = eng.encode_secrets(rng.integers(0, min(ctx.p, 1 << 62), size=(P_grouped, dimension)))
-        runs = [("ext", eng.planar7_ext(ext, LANES), P, secrets),
-                ("sum", eng.planar7_secrets(secrets, LANES), P, secrets),
-                ("grouped", eng.planar7_secrets(many, LANES), P_grouped, many)]
-        for mode, sec7, p_count, plain_secrets in runs:
-            for out7, rec in ((False, None), (True, None), (False, spec.reconstruct_matrix)):
-                plans = [m7.mxu_plan(eng.mxu, spec.share_matrix, sec7.shape[0], p_count, k, r,
-                                     out7=out7, reconstruct_matrix=rec, device=device)
-                         for device in (DEVICE, "cpu")]
-                if mode != "ext" and plans[0].rand_mode != mode:
-                    raise AssertionError(f"{name} P={p_count} took {plans[0].rand_mode} mode")
-                seed = 4321 + cases
-                got = m7.run_mxu(plans[0], sec7, seed)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                want = m7.run_mxu(plans[1], sec7.cpu(), seed)
-                plain_s = time.perf_counter() - t0
-                err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
-                max_err = max(max_err, err)
-                if err:
-                    raise AssertionError(f"mxu7 kernel != plain at {name} {mode} out7={out7} "
-                                         f"rec={rec is not None}: max err {err}")
-                if rec is not None:
-                    out = m7.batched_from_planar16(got, eng.nb)
-                    if not torch.equal(out.to(torch.int64), ctx.sum_mod(plain_secrets, axis=0)):
-                        raise AssertionError(f"mxu7 reveal != modular sum at {name} {mode}")
-                if name == "p63special" and mode == "sum" and rec is not None:
-                    t = cuda_time(lambda i: m7.run_mxu(plans[0], sec7, i), iters=10, warmup=2)
-                    mid = {"kernel_ms": t.median_ms, "plain_cpu_ms": plain_s * 1e3,
-                           "shape": f"P={P} dim={dimension} NBP={sec7.shape[1]}"}
-                cases += 1
-        # the reconstruct-only call: one participant, the n clerks as slots
-        comb = eng.mxu_kernel_combined(eng.planar7_ext(ext, LANES), 0, P, LANES)
-        c7 = eng.mxu.limbs7_from_16(comb.permute(0, 2, 1)).permute(0, 2, 1)
-        c7 = c7.reshape(-1, comb.shape[-1]).contiguous()
-        plans = [m7.mxu_plan(eng.mxu, spec.reconstruct_matrix, c7.shape[0], 1, n, 0, device=d)
-                 for d in (DEVICE, "cpu")]
-        got, want = m7.run_mxu(plans[0], c7, 0), m7.run_mxu(plans[1], c7.cpu(), 0)
-        err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
-        if err:
-            raise AssertionError(f"mxu7 reconstruct-only kernel != plain at {name}: max err {err}")
-        cases += 1
+        got = _compare_mxu7(eng, secrets, many, ext, LANES, 4321 + cases, name,
+                            timed=name == "p63special")
+        cases, max_err, mid = cases + got[0], max(max_err, got[1]), got[2] or mid
         # the plain-product route on the card (torch._int_mm)
         if not torch.equal(eng.share_mxu(ext), eng.share(ext)):
             raise AssertionError(f"share_mxu != CIOS share at {name}")
@@ -1441,6 +1478,45 @@ def phase_compare_mxu7(P: int = 16, P_grouped: int = 131, dimension: int = 3000)
         if not torch.equal(eng.aggregate_mxu(secrets, gen), ctx.sum_mod(secrets, axis=0)):
             raise AssertionError(f"aggregate_mxu reveal != modular sum at {name}")
     return cases, max_err, mid
+
+
+# B6's ring cases, at 16 x 3 x L7 rows per 16 participants in rand-sum mode
+# (x 7/3 with caller randomness): (what, modulus, participants, dimension,
+# lanes). NBP = ceil(dimension / 3) rounded up to lanes, so lanes 16 leaves
+# a block's last lanes past NBP, lanes 4 and 1 take the 4-byte and the byte
+# copies of sec. Grouped mode needs more than 129 participants that do not
+# split into equal carry-save groups, so each case runs it at P_GROUPED.
+RING7_CASES = (
+    ("K below one tile, P=1", "p63special", 1, 300, 16),
+    ("K below one tile, P=2", "p63special", 2, 300, 16),
+    ("K between one tile and the ring, not a multiple of 64", "p63special", 5, 300, 16),
+    ("K of several tiles", "p63special", 16, 300, 128),
+    ("NBP=100: 4-byte sec copies", "p63special", 5, 300, 4),
+    ("NBP=101: byte sec copies", "p63special", 5, 303, 1),
+    ("NBP=304: lanes past NBP in the third block", "p62", 5, 900, 16),
+    ("128-bit field (MT10)", "p127special", 3, 300, 16),
+    ("p433 (MT1)", "p433", 4, 300, 16),
+)
+P_GROUPED = 131
+
+
+def phase_compare_ring7():
+    """B6 against its plain version (``_compare_mxu7``) at every ring case,
+    grouped mode at P_GROUPED. Returns (cases, max_abs_err)."""
+    import numpy as np
+    import torch
+
+    cases, max_err, engines = 0, 0, {}
+    for what, name, P, dim, lanes in RING7_CASES:
+        if (name, dim) not in engines:
+            engines[name, dim] = _engines(dim, {name})[name]
+        eng = engines[name, dim]
+        rng = np.random.default_rng(15)
+        many = eng.encode_secrets(rng.integers(0, min(eng.ctx.p, 1 << 62), size=(P_GROUPED, dim)))
+        ext = torch.cat([many[:P], eng.random_ext(P, rng=rng)], dim=2)
+        got = _compare_mxu7(eng, many[:P], many, ext, lanes, 6000 + cases, f"ring case {what}")
+        cases, max_err = cases + got[0], max(max_err, got[1])
+    return cases, max_err
 
 
 def phase_gen3_headline(mhz: float, iters: int = 20):
@@ -1492,6 +1568,17 @@ def phase_gen3_headline(mhz: float, iters: int = 20):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     bound_ms, bound_by, parts = _mxu7_bound(plan, nbp, mhz)
+    # the launch's phases apart, through the same wrapper: the K loop alone
+    # (no randomness), the randomness passes behind a one-tile K loop, and
+    # neither (one tile and the epilogue)
+    split = {
+        "loop": (dataclasses.replace(plan, rand_mode="none", n_blocks=0), sec7),
+        "randomness": (dataclasses.replace(plan, rows=64), sec7[:64]),
+        "neither": (dataclasses.replace(plan, rows=64, rand_mode="none", n_blocks=0), sec7[:64]),
+    }
+    split_ms = {name: cuda_time(lambda i, q=q, x=x: m7.run_mxu(q, x, i), iters=10,
+                                warmup=2).median_ms
+                for name, (q, x) in split.items()}
     del sec7, raw
     torch.cuda.empty_cache()
 
@@ -1508,6 +1595,7 @@ def phase_gen3_headline(mhz: float, iters: int = 20):
                       iters=5, warmup=1)
     ext_plan = engine._plan7("share", ext_rows, HEADLINE_P, ext7.device)
     ext_bound_ms, ext_bound_by, _ = _mxu7_bound(ext_plan, nbp, mhz)
+    ext_launch = _launch_report(ext_plan, nbp)
     del ext7
     torch.cuda.empty_cache()
     return {
@@ -1515,7 +1603,8 @@ def phase_gen3_headline(mhz: float, iters: int = 20):
         "max_abs_err": err, "step_ms": step_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "parts": parts, "philox_call_ops": _philox_call_ops(plan), "ext_timing": t_ext,
         "ext_bound_ms": ext_bound_ms,
-        "ext_bound_by": ext_bound_by,
+        "ext_bound_by": ext_bound_by, "launch": _launch_report(plan, nbp),
+        "ext_launch": ext_launch, "split_ms": split_ms,
         "shape": f"P={HEADLINE_P} dim={HEADLINE_DIM} rows={rows} NBP={nbp}",
         "ext_shape": f"P={HEADLINE_P} rows={ext_rows} NBP={nbp}",
     }
@@ -1569,6 +1658,7 @@ def phase_gen3_streaming(mhz: float, iters: int = 5):
     return {
         "launches": counts["mxu7_fused"], "step": t_step, "host_step_ms": host_step_ms,
         "chunk_timing": t_chunk, "step_bound_ms": step_bound_ms,
+        "launch": _launch_report(plan, nbp), "rec_launch": _launch_report(rec_plan, nbp),
         "idle_share": max(0.0, 1 - t_step.median_ms / host_step_ms),
         "shape": f"P={n_chunks}x{p_chunk} dim={HEADLINE_DIM} rows={rows}/chunk NBP={nbp}",
     }
@@ -2062,10 +2152,16 @@ def main() -> int:
           f"({fm['host_ms']:.4f} ms)", flush=True)
 
     cases7, err7, mid7 = phase_compare_mxu7()
+    ring7, ring7_err = phase_compare_ring7()
+    err7 = max(err7, ring7_err)
     print(f"mxu7 compare: {cases7} kernel/plain cases bit-equal at the mid shape "
           f"({mid7['shape']}; caller randomness, rand-sum P=16, grouped P=131; combined, out7, "
-          f"fused reconstruction; reconstruct-only) at 4 moduli; share_mxu == CIOS share and "
-          f"the aggregate_mxu reveal exact on the card; kernel {mid7['kernel_ms']:.4f} ms, "
+          f"fused reconstruction; reconstruct-only) at 4 moduli; ring cases ({len(RING7_CASES)} "
+          f"shapes: K below one tile, below the ring, not a multiple of 64; NBP past the last "
+          f"block; 4-byte and byte copies; 128-bit; p433; each in caller-randomness, rand-sum "
+          f"and grouped (P={P_GROUPED}) mode, combined, out7 and reconstructed, and "
+          f"reconstruct-only): {ring7} cases bit-equal; share_mxu == CIOS share and the "
+          f"aggregate_mxu reveal exact on the card; kernel {mid7['kernel_ms']:.4f} ms, "
           f"plain (CPU) {mid7['plain_cpu_ms']:.1f} ms", flush=True)
     g3 = phase_gen3_headline(mhz)
     t6 = g3["timing"]
@@ -2075,13 +2171,17 @@ def main() -> int:
           f"{HEADLINE_P / (t6.median_ms / 1e3):.0f} aggregations/s; bound {g3['bound_ms']:.4f} ms "
           f"({g3['bound_by']}: bytes {pp['bytes']:.4f}, int8 {pp['int8']:.4f}, Philox issue "
           f"{pp['philox']:.4f} at {g3['philox_call_ops']} SASS instructions per call); plain on "
-          f"card {g3['plain_ms']:.1f} ms; reveal exact", flush=True)
+          f"card {g3['plain_ms']:.1f} ms; reveal exact; {_launch_text(g3['launch'])}", flush=True)
     te = g3["ext_timing"]
     print(f"gen-3 headline: back-to-back step {g3['step_ms']:.4f} ms on the host clock (device "
           f"idle share {max(0.0, 1 - t6.median_ms / g3['step_ms']):.4f}); caller randomness "
           f"{g3['ext_shape']}: one launch, median {te.median_ms:.4f} ms (min {te.min_ms:.4f}, "
           f"max {te.max_ms:.4f}), bound {g3['ext_bound_ms']:.4f} ms ({g3['ext_bound_by']}), "
-          f"reveal exact", flush=True)
+          f"reveal exact; {_launch_text(g3['ext_launch'])}", flush=True)
+    sp = g3["split_ms"]
+    print(f"gen-3 headline: phases of the B6 launch: K loop alone {sp['loop']:.4f} ms, "
+          f"randomness passes behind a one-tile K loop {sp['randomness']:.4f} ms, neither (one "
+          f"tile and the epilogue) {sp['neither']:.4f} ms", flush=True)
     s3 = phase_gen3_streaming(mhz)
     ts3 = s3["step"]
     total3s = CONFIG4["n_chunks"] * CONFIG4["p_chunk"]
@@ -2090,8 +2190,9 @@ def main() -> int:
           f"{len(ts3.samples_ms)} steps, events), {total3s / (ts3.median_ms / 1e3):.0f} "
           f"aggregations/s; step bound {s3['step_bound_ms']:.4f} ms; chunk launch "
           f"{s3['chunk_timing'].median_ms:.4f} ms; back-to-back step {s3['host_step_ms']:.4f} ms "
-          f"on the host clock (device idle share {s3['idle_share']:.4f}); reveal exact",
-          flush=True)
+          f"on the host clock (device idle share {s3['idle_share']:.4f}); reveal exact; "
+          f"chunk: {_launch_text(s3['launch'])}; reconstruction: "
+          f"{_launch_text(s3['rec_launch'])}", flush=True)
     casesp, errp, midp = phase_compare_planar()
     print(f"planar compare: {casesp} kernel/plain cases bit-equal at the mid shape "
           f"({midp['shape']}; PRNG and caller randomness at p433, additive 2^61-1, p62, "
@@ -2299,7 +2400,7 @@ def main() -> int:
             "library_ms": None,
             "shape": g3["shape"],
             "step_ms": g3["step_ms"],
-            "ext_ms": te.median_ms,
+            "ext_ms": te.median_ms, "phase_ms": g3["split_ms"],
             "ext_shape": g3["ext_shape"],
             "mid_kernel_ms": mid7["kernel_ms"],
             "mid_plain_cpu_ms": mid7["plain_cpu_ms"],

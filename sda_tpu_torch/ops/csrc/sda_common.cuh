@@ -1,9 +1,10 @@
 // Device code shared by the port's kernels (each .cu file is its own build
 // and includes this header): the Philox4x32-10 generator, 16-bit-limb
 // Montgomery arithmetic, and the int8 tensor-core pipeline of the fused
-// kernels (mxu8.cu, mxu7.cu): tile staging into shared memory (plain loads,
-// or the cp.async ring of mxu8.cu) and mma.sync.m16n8k32.s32.s8.s8.s32 over
-// those tiles.
+// kernels (mxu8.cu, mxu7.cu): the cp.async ring that streams the sec
+// operand's K loop (its A-matrix copy also stages mxu7.cu's bigR tiles),
+// plain-load staging of mxu8.cu's bigR tiles, and
+// mma.sync.m16n8k32.s32.s8.s8.s32 over those tiles.
 #pragma once
 
 #include <cstdint>
@@ -111,43 +112,6 @@ __device__ inline void load_a_tile(int8_t* sA, const int8_t* A, int lda, int nro
   }
 }
 
-// B tile: sec rows [k0, k0 + kKT) x lanes [lane0, lane0 + kT), stored
-// transposed (sB[lane][k], row stride sb bytes) with 4x4 byte transposes;
-// rows past K are zero.
-__device__ inline void load_b_tile(int8_t* sB, int sb, const int8_t* sec, int K, int nbp, int k0,
-                                   int lane0, int tid) {
-  const bool vec = (nbp & 3) == 0;
-  for (int idx = tid; idx < (kKT / 4) * (kT / 4); idx += kThreads) {
-    // a warp covers 8 lane quads x 4 k quads: 32-byte sectors per row
-    const int lq = (idx & 7) + 8 * ((idx >> 5) & 3);
-    const int kq = ((idx >> 3) & 3) + 4 * (idx >> 7);
-    const int lane = lane0 + 4 * lq;
-    uint32_t r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * kq + j;
-      r[j] = 0;
-      if (k < K) {
-        const int8_t* row = sec + (size_t)k * nbp;
-        if (vec && lane + 3 < nbp) {
-          r[j] = *reinterpret_cast<const uint32_t*>(row + lane);
-        } else {
-          for (int b = 0; b < 4; ++b)
-            if (lane + b < nbp) r[j] |= (uint32_t)(uint8_t)row[lane + b] << (8 * b);
-        }
-      }
-    }
-    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(sB + (4 * lq) * sb + 4 * kq);
-    const int sw = sb / 4;
-    dst[0] = __byte_perm(t0, t2, 0x5410);
-    dst[sw] = __byte_perm(t0, t2, 0x7632);
-    dst[2 * sw] = __byte_perm(t1, t3, 0x5410);
-    dst[3 * sw] = __byte_perm(t1, t3, 0x7632);
-  }
-}
-
 __device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
                                        uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -185,11 +149,11 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[MT][2][4], const int8_t* sA
 
 // ------------------------------------------------------ cp.async ring
 //
-// The pipelined form of the staging above (mxu8.cu): each ring stage holds
-// a raw sec tile (kKT rows x kT lanes, lane-contiguous as in device memory)
-// and the matching kKT columns of the A matrix, copied with cp.async while
-// the tensor cores work on an earlier stage. Each warp transposes its own
-// 16 lanes of a landed raw tile into sB, so the transpose needs no block
+// The K loop's staging (mxu8.cu, mxu7.cu): each ring stage holds a raw sec
+// tile (kKT rows x kT lanes, lane-contiguous as in device memory) and the
+// matching kKT columns of the A matrix, copied with cp.async while the
+// tensor cores work on an earlier stage. Each warp transposes its own 16
+// lanes of a landed raw tile into sB, so the transpose needs no block
 // barrier.
 
 constexpr int kRawBytes = kKT * kT;  // one raw sec tile, 8 KB
@@ -225,14 +189,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ int raw_chunk(int r, int c) { return c ^ ((r >> 2) & 7); }
 
 // Start the copy of rows [0, rows) x columns [col0, col0 + kKT) of a
-// row-major int8 matrix with lda columns into sA (row stride kSA), and of
-// row extra_row into row `rows` of sA; zero past lda. VEC (16, 8 or 4)
-// divides lda and the matrix's address.
-template <int VEC>
+// row-major int8 matrix with lda columns into sA (row stride kSA), and, with
+// EXTRA (mxu8's ones row), of row extra_row into row `rows` of sA; zero past
+// lda. VEC (16, 8 or 4) divides lda and the matrix's address.
+template <int VEC, bool EXTRA = true>
 __device__ __forceinline__ void ring_load_a(int8_t* sA, const int8_t* A, int lda, int rows,
                                             int extra_row, int col0, int tid) {
   constexpr int kPerRow = kKT / VEC;
-  for (int idx = tid; idx < (rows + 1) * kPerRow; idx += kThreads) {
+  for (int idx = tid; idx < (rows + (EXTRA ? 1 : 0)) * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow, c = idx % kPerRow, col = col0 + c * VEC;
     const bool in = col < lda;
     const int src_row = r < rows ? r : extra_row;
@@ -261,11 +225,12 @@ __device__ __forceinline__ void ring_load_raw(int8_t* raw, const int8_t* sec, in
 
 // Warp `warp`'s 16 lanes of a landed raw tile into rows [16 warp, 16 warp +
 // 16) of sB (row stride sb, sb / 4 == 4 mod 8), K-contiguous, with 4x4 byte
-// transposes: the bytes load_b_tile stores, read from shared memory instead
-// of device memory. Lane quads 1 and 2 store their four rows in the order
-// 2, 3, 0, 1, so that each store instruction hits 32 distinct banks. Each
-// transposed word (4 k of one lane) also adds its dot product with the
-// tile's row w1 (kKT int8 weights) into wsum[x] of its lane 4 (lane & 3) + x.
+// transposes (__byte_perm). Lane quads 1 and 2 store their four rows in the
+// order 2, 3, 0, 1, so that each store instruction hits 32 distinct banks.
+// With ONES (mxu8's ones row), each transposed word (4 k of one lane) also
+// adds its dot product with the tile's row w1 (kKT int8 weights) into
+// wsum[x] of its lane 4 (lane & 3) + x; without, w1 and wsum are not read.
+template <bool ONES = true>
 __device__ __forceinline__ void ring_transpose_b(int8_t* sB, int sb, const int8_t* raw,
                                                  const int8_t* w1, int (&wsum)[4], int warp,
                                                  int lane) {
@@ -284,9 +249,11 @@ __device__ __forceinline__ void ring_transpose_b(int8_t* sB, int sb, const int8_
     const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
     const uint32_t o[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
                            __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
-    const int w = *reinterpret_cast<const int*>(w1 + 4 * kq);
+    if constexpr (ONES) {
+      const int w = *reinterpret_cast<const int*>(w1 + 4 * kq);
 #pragma unroll
-    for (int x = 0; x < 4; ++x) wsum[x] = __dp4a((int)o[x], w, wsum[x]);
+      for (int x = 0; x < 4; ++x) wsum[x] = __dp4a((int)o[x], w, wsum[x]);
+    }
     uint32_t* dst = reinterpret_cast<uint32_t*>(sB + (warp * 16 + 4 * lq) * sb + 4 * kq);
     dst[x0 * sw] = swap ? o[2] : o[0];
     dst[(x0 + 1) * sw] = swap ? o[3] : o[1];

@@ -69,6 +69,7 @@ __all__ = [
     "planar7_from_batched",
     "batched_from_planar16",
     "KERNEL_VARIANTS",
+    "kernel_occupancy",
 ]
 
 _W7 = 7
@@ -413,6 +414,27 @@ def _fused_share_combine_mxu_plain(plan: MxuPlan, sec: torch.Tensor, seed: int) 
 # ------------------------------------------------------------------ kernel
 
 
+def _kernel_params(plan: MxuPlan, nbp: int, seed: int) -> np.ndarray:
+    """The kernel's ``Params`` as ``csrc/mxu7.cu`` reads them: int32, in
+    field order, the seed as its 32-bit pattern."""
+    mxu = plan.mxu
+    L = mxu.ctx.L
+    mode = {"none": 0, "sum": 1, "grouped": 2}[plan.rand_mode]
+    return np.array([
+        plan.rows, plan.bigs.shape[1], nbp, plan.n_pad, plan.n, mxu.L7, L, mxu.chunk,
+        plan.n_consts, mxu.ctx.p_inv_w, plan.n2, int(plan.out7), mode, plan.p_count,
+        plan.words_per_p, plan.RL, plan.gsize, plan.pb, plan.n_blocks, plan.kb,
+        plan.bigr.shape[1], np.uint32(seed & _M32).view(np.int32),
+        0, plan.n_consts * L,
+    ], dtype=np.int32)
+
+
+def kernel_mt(plan: MxuPlan) -> int:
+    """The ``MT`` template instance of ``csrc/mxu7.cu`` that a launch with
+    this plan runs: the m16 tiles of the ``n * L7`` accumulator rows."""
+    return -(-(plan.n * plan.mxu.L7) // 16)
+
+
 def _launch_mxu_kernel(plan: MxuPlan, sec: torch.Tensor, seed: int) -> torch.Tensor:
     """One launch of ``csrc/mxu7.cu`` on the current stream."""
     global mxu_fused_launches
@@ -423,23 +445,16 @@ def _launch_mxu_kernel(plan: MxuPlan, sec: torch.Tensor, seed: int) -> torch.Ten
     if plan.bigs.device != sec.device:
         raise ValueError("the plan's tensors lie on another device than sec_planar")
     mxu = plan.mxu
-    if -(-(plan.n * mxu.L7) // 16) > 12 or mxu.L7 + 4 > 32 or mxu.ctx.L > 8:
-        raise ValueError("n * L7 > 192 accumulator rows or L7 > 28: not supported by the kernel")
+    if kernel_mt(plan) > 12 or mxu.L7 + 4 > 32 or mxu.ctx.L not in (2, 4, 8):
+        raise ValueError("n * L7 > 192 accumulator rows, L7 > 28 or L not 2, 4 or 8: "
+                         "not supported by the kernel")
     lib = load_kernel_library(*KERNEL_VARIANTS["mxu7_fused"])
     fn = lib.sda_mxu7_fused
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     nbp = sec.shape[1]
-    L, L7 = mxu.ctx.L, mxu.L7
-    mode = {"none": 0, "sum": 1, "grouped": 2}[plan.rand_mode]
-    params = np.array([
-        plan.rows, plan.bigs.shape[1], nbp, plan.n_pad, plan.n, L7, L, mxu.chunk,
-        plan.n_consts, mxu.ctx.p_inv_w, plan.n2, int(plan.out7), mode, plan.p_count,
-        plan.words_per_p, plan.RL, plan.gsize, plan.pb, plan.n_blocks, plan.kb,
-        plan.bigr.shape[1], np.uint32(seed & _M32).view(np.int32),
-        0, plan.n_consts * L,
-    ], dtype=np.int32)
-    out_limbs = L7 if plan.out7 else L
+    params = _kernel_params(plan, nbp, seed)
+    out_limbs = mxu.L7 if plan.out7 else mxu.ctx.L
     out = torch.empty((plan.n_out, out_limbs, nbp),
                       dtype=torch.int8 if plan.out7 else torch.int32, device=sec.device)
     with torch.cuda.device(sec.device):
@@ -452,6 +467,24 @@ def _launch_mxu_kernel(plan: MxuPlan, sec: torch.Tensor, seed: int) -> torch.Ten
         raise RuntimeError(f"mxu7_fused kernel launch failed: cudaError {err}")
     mxu_fused_launches += 1
     return out
+
+
+def kernel_occupancy(plan: MxuPlan, nbp: int) -> tuple[int, int]:
+    """(dynamic shared memory per block in bytes, resident blocks per SM)
+    of the kernel launch a CUDA call of ``run_mxu`` with this plan makes at
+    ``nbp`` lanes, from the CUDA runtime's occupancy calculator on the
+    current device. Launches nothing."""
+    from sda_tpu_torch.ops.cuda_build import load_kernel_library
+
+    fn = load_kernel_library(*KERNEL_VARIANTS["mxu7_fused"]).sda_mxu7_occupancy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    params = _kernel_params(plan, nbp, 0)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(params.ctypes.data, len(params), ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"mxu7_fused occupancy query failed: cudaError {err}")
+    return smem.value, blocks.value
 
 
 def run_mxu(plan: MxuPlan, sec_planar: torch.Tensor, seed: int = 0,

@@ -375,3 +375,96 @@ def test_guards_match_reference():
     plan = t_mk.mxu_plan(eng.mxu, M, ok.shape[0], 2, 3, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         t_mk.run_mxu(plan, torch.empty(ok.shape, dtype=torch.int8, device="meta"))
+
+
+@pytest.mark.parametrize("dim,lanes,P", [(300, 100, 2), (303, 101, 2), (24, 128, 1)],
+                         ids=["nbp100", "nbp101", "k_below_one_tile"])
+def test_fused_ext_ring_edges_match_reference(dim, lanes, P):
+    """The shapes at the edges of the CUDA kernel's K ring, in caller-
+    randomness mode with fused reconstruction: NBP 100 and 101 (the 4-byte
+    and byte copies of the operand; one grid step of NBP lanes here) and
+    K = 63 rows, below one 64-row tile (P = 1). The plain version equals the
+    interpret-mode Pallas kernel limb for limb; the lane tiling does not
+    change the function."""
+    ref, eng = _pair("p62", dim)
+    _, ext = _ext(ref, P, 16)
+    sec_ref = ref.planar7_ext(jnp.asarray(ext), lanes=lanes)
+    sec = eng.planar7_ext(limbs_from_numpy(ext), lanes=lanes)
+    assert tuple(sec.shape) == tuple(sec_ref.shape) == (P * 7 * eng.mxu.L7, -(-eng.nb // lanes) * lanes)
+    want = ref_mk.fused_share_combine_mxu(
+        ref.mxu, ref.spec.share_matrix, sec_ref, P, 3, 4, lanes=lanes, interpret=True,
+        reconstruct_matrix=ref.spec.reconstruct_matrix,
+    )
+    got = t_mk.fused_share_combine_mxu(eng.mxu, eng.spec.share_matrix, sec, P, 3, 4, lanes=lanes,
+                                       reconstruct_matrix=eng.spec.reconstruct_matrix)
+    _same(want, got)
+
+
+def test_kernel_params_follow_the_kernels_field_order():
+    """The int32 array the launcher passes is csrc/mxu7.cu's Params field by
+    field: as many entries as kNParams, each at the index the kernel's
+    parser reads it from, the seed as its 32-bit pattern."""
+    import re
+    from pathlib import Path
+
+    src = (Path(t_mk.__file__).parent / "csrc" / "mxu7.cu").read_text()
+    n_params = int(re.search(r"constexpr int kNParams = (\d+);", src).group(1))
+    fields = {name: int(i) for name, i in re.findall(r"p\.(\w+) = (?:\(uint32_t\))?v\[(\d+)\];", src)}
+    assert sorted(fields.values()) == list(range(n_params))
+    _, eng = _pair("p62")
+    mxu, spec = eng.mxu, eng.spec
+    rows = 131 * 3 * mxu.L7
+    plan = t_mk.mxu_plan(mxu, spec.share_matrix, rows, 131, 3, 4,
+                         reconstruct_matrix=spec.reconstruct_matrix)
+    assert plan.rand_mode == "grouped"
+    v = t_mk._kernel_params(plan, 4096, -1)
+    assert v.dtype == np.int32 and len(v) == n_params
+    want = {"K": rows, "lda": plan.bigs.shape[1], "nbp": 4096, "n_pad": plan.n_pad, "n": 8,
+            "L7": mxu.L7, "L": eng.ctx.L, "chunk": mxu.chunk, "n_consts": plan.n_consts,
+            "n2": 3, "out7": 0, "mode": 2, "P": 131, "wpp": plan.words_per_p, "RL": plan.RL,
+            "gsize": 0, "pb": plan.pb, "n_blocks": plan.n_blocks, "kb": plan.kb,
+            "bigr_cols": plan.bigr.shape[1], "off_consts": 0, "off_p": plan.n_consts * eng.ctx.L}
+    assert {k: int(v[fields[k]]) for k in want} == want
+    assert int(np.uint32(v[fields["seed"]])) == 0xFFFFFFFF
+    assert t_mk.kernel_mt(plan) == 5  # 8 clerks x 9 limbs: 72 accumulator rows
+
+
+def test_philox_call_ops_read_the_mode_s_generator_loop(monkeypatch):
+    """chip_smoke's Philox issue term for B6 counts the body of the one
+    innermost generator loop of the plan's randomness mode: without a
+    shared-memory store in rand-sum mode, with one in grouped mode; a
+    listing with two rand-sum loops is refused."""
+    from types import SimpleNamespace
+
+    import chip_smoke
+
+    mul = " R4, R2, -0x2daee0ad, RZ"
+    instrs = [
+        (0x00, "MOV", " R1, R2"),
+        (0x10, "IMMA.16832.S8.S8", " R8, R12, R16, R8"),  # K loop 0x10-0x30
+        (0x20, "BAR.SYNC.DEFER_BLOCKING", " 0x0"),
+        (0x30, "BRA", " 0x10"),
+        (0x40, "IMAD.WIDE.U32", mul),  # rand-sum loop 0x40-0x80
+        (0x50, "LOP3.LUT", " R5, R4, R3, RZ, 0x96, !PT"),
+        (0x60, "IMAD.IADD", " R6, R5, 0x1, R6"),
+        (0x70, "ISETP.GE.AND", " P0, PT, R6, R9, PT"),
+        (0x80, "BRA", " 0x40"),
+        (0x90, "STS", " [R10], R6"),  # outside the loop: the exchange store
+        (0xa0, "IMAD.WIDE.U32", mul),  # grouped loop 0xa0-0xe0
+        (0xb0, "LOP3.LUT", " R5, R4, R3, RZ, 0x96, !PT"),
+        (0xc0, "STS.U8", " [R11], R5"),
+        (0xd0, "ISETP.GE.AND", " P1, PT, R7, R9, PT"),
+        (0xe0, "BRA", " 0xa0"),
+    ]
+    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT5": instrs})
+
+    def plan(mode):
+        return SimpleNamespace(rand_mode=mode, n=8, mxu=SimpleNamespace(L7=9))
+
+    assert chip_smoke._philox_call_ops(plan("sum")) == 5
+    assert chip_smoke._philox_call_ops(plan("grouped")) == 5
+    assert chip_smoke._philox_call_ops(plan("none")) == 0
+    twice = instrs + [(0xf0, "IMAD.WIDE.U32", mul), (0x100, "BRA", " 0xf0")]
+    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT5": twice})
+    with pytest.raises(AssertionError, match="found 2 sum-mode Philox loops"):
+        chip_smoke._philox_call_ops(plan("sum"))
