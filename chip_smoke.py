@@ -10,7 +10,8 @@ Phases, each of which raises on failure:
    ``planar_cios.cu``, one nvcc each, all started together; set-up), print
    ptxas's registers and spills for every instantiation, the SASS opcode
    counts (``cuobjdump -sass``) of the ChaCha, planar and headline mxu7 and
-   mxu8 kernels, and the card's name and power limit. The B1-B3, B6 and B7
+   mxu8 kernels, and the card's name and power limit; B1's, B3's and B6's
+   registers and spills against ``KEPT_PTXAS``. The B1-B3, B6 and B7
    bounds count the instructions of the built kernels' generator and
    participant loops;
 2. compare: at a mid shape (16 participants per chunk, 3,000 dimensions,
@@ -23,7 +24,8 @@ Phases, each of which raises on failure:
    Then the ring cases (``RING_CASES``: K below one tile, below the ring's
    depth and not a multiple of 64, other randomness draw counts, 128 bits,
    lanes past NBP, the narrower copy paths, the ones row inside the MMA's
-   tiles), each through B1, B2 with 3 chunks and B3, bit-equal;
+   tiles), each through B1, B2 with 3 chunks (at the card's split count
+   and at S = 1, 2, 5 and more splits than K tiles) and B3, bit-equal;
 3. headline: ``FederatedAggregation.packed_64bit(dimension=1_000_002)`` with
    768 participants through ``engine.aggregate_mxu8_kernel``: one step with
    the launch counters reset before and read after, the reveal checked on
@@ -35,8 +37,15 @@ Phases, each of which raises on failure:
    operations and the Philox calls' SASS instructions at the issue rate;
 4. config 3: ``packed_128bit(dimension=10_002)``, 2 chunks x 512
    participants, lanes 512, through ``engine.aggregate_mxu8_kernel_chunked``:
-   exactly one B2 launch for the step, the reveal on the first 512 lanes,
-   the kernel against its plain version on the card, timed steps;
+   exactly one B2 call for the step (a memset, ``mxu8_split_kernel`` on
+   NBP / 128 x S blocks, at least one per SM, and ``mxu8_epilogue_kernel``),
+   the reveal on the first 512 lanes, the kernels against their plain
+   version on the card, timed steps (and the card's own time: windows of
+   steps queued behind a stream spin); S, the grid, both kernels' shared
+   memory, blocks per SM, registers and spills; the kernels' device times
+   from a ``torch.profiler`` trace, the split kernel's halves through cut
+   plans at the same S (K tiles without randomness, draws behind one tile a
+   chunk, neither), and the whole call at other split counts;
 5. config 4: ``packed_64bit(dimension=1_000_002)``, 14 chunks x 768
    participants (10,752; one resident chunk re-read per chunk) through
    ``engine.aggregate_mxu8_kernel_streaming``: B1 x 2 and B3 x 13 for the
@@ -111,7 +120,8 @@ Phases, each of which raises on failure:
     their plain versions on CPU copies, at the shapes their tools give
     them: T1 at the config-2 job (2,400 rows x 384 lanes), T1' (1 KB in,
     4 KB out), T2 at the serving batch (2,400 x 196,608), T3 at config 3
-    (2 chunks x 24,576 rows x 3,584 lanes): each output seed-filled and
+    (2 chunks x 24,576 rows x 3,584 lanes, on B2's split grid at B2's S):
+    each output seed-filled and
     bit-equal, each block's sink bit-equal, and the XOR of the sinks equal
     to torch's XOR of the input's words on the card (the proof that every
     byte was read); then each probe, its plain version on the card and the
@@ -174,15 +184,29 @@ FOLD_DRAW_OPS = 4 * 8
 # Philox4x32-10's multipliers as cuobjdump prints an immediate (signed or not)
 PHILOX_MUL_RE = re.compile(r"-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57", re.I)
 GEN1_STREAM = dict(chunks=3, p_chunk=64)
+# ptxas's (registers, spilled bytes) of B1, B3 and B6's MT1-MT12 instances
+# when their times in PERF.md were measured (B6: registers, no spill); a
+# change to the kernels' shared code must leave them as they are
+KEPT_PTXAS = {
+    "mxu8_fused": ((64, 68), (80, 0), (80, 100), (119, 0), (124, 0), (125, 0), (128, 0),
+                   (128, 176), (128, 220), (128, 296), (235, 0), (247, 0)),
+    "mxu8_acc": ((64, 92), (80, 4), (80, 104), (119, 0), (124, 0), (126, 0), (128, 0),
+                 (128, 176), (128, 220), (223, 0), (235, 0), (247, 0)),
+    "mxu7_fused": tuple((r, 0) for r in (73, 96, 97, 116, 122, 125, 128, 128, 203, 215, 226, 238)),
+}
 
 
 def _kernel_label(mangled: str):
     """Short name of a kernel instantiation: ``MT<n>`` for the mxu8 and
-    mxu7 kernels' templates, ``L<n>`` for the planar CIOS kernel's, the
-    function name for the ChaCha kernels."""
-    m = re.search(r"mxu[78]_fused_kernelILi(\d+)E", mangled)
+    mxu7 kernels' templates (B2: its split kernel), ``epi<n>`` for B2's
+    epilogue kernel, ``L<n>`` for the planar CIOS kernel's, the function
+    name for the ChaCha kernels."""
+    m = re.search(r"mxu(?:[78]_fused|8_split)_kernelILi(\d+)E", mangled)
     if m:
         return f"MT{m.group(1)}"
+    m = re.search(r"mxu8_epilogue_kernelILi(\d+)E", mangled)
+    if m:
+        return f"epi{m.group(1)}"
     m = re.search(r"planar_cios_kernelILi(\d+)E", mangled)
     if m:
         return f"L{m.group(1)}"
@@ -220,7 +244,12 @@ def _ptxas_summary(report: str) -> str:
     report, and the largest spill anywhere in it."""
     regs = {label: r for label, (r, _) in _ptxas_spills(report).items()}
     spill = max((int(x) for x in re.findall(r"(\d+) bytes spill stores", report)), default=0)
-    order = sorted(regs, key=lambda k: (0, int(k[2:]), "") if k.startswith("MT") else (1, 0, k))
+
+    def order(k):
+        m = re.fullmatch(r"(MT|epi)(\d+)", k)
+        return (m.group(1) != "MT", int(m.group(2)), "") if m else (2, 0, k)
+
+    order = sorted(regs, key=order)
     return " ".join(f"{k}:{regs[k]}" for k in order) + f"; max spill {spill} B"
 
 
@@ -396,6 +425,17 @@ RING_CASES = (
     ("K=12: 4-byte bigS copies", "p433", 2, 300, 16, None),
     ("ones row inside the MMA's tiles (additive, 3 clerks)", "additive61", 4, 300, 16, None),
 )
+# Plans at the kernels' widest, each in caller-randomness and PRNG mode with
+# reconstruction: (what, clerks of an additive scheme, modulus, reconstruction
+# outputs: None for the scheme's own). The first two fill MT 12 and MT 11
+# with the most randomness columns (Kr_pad 288 and 256), where B2's epilogue
+# kernel once kept bigR and big2 whole in shared memory; the third asks for
+# more outputs than clerks, which B2's stage 2 takes in two passes.
+WIDE_CASES = (
+    ("MT 12: 23 clerks, 63-bit", 23, "p63special", None),
+    ("MT 11: 11 clerks, 128-bit", 11, "p127special", None),
+    ("11 reconstruction outputs from 8 clerks", 8, "p63special", 11),
+)
 
 
 def _ring_inputs(dimension: int, n_parts: int, seed: int):
@@ -421,6 +461,29 @@ def _ring_inputs(dimension: int, n_parts: int, seed: int):
     return out
 
 
+def _wide_inputs(clerks: int, modulus: str, n_out, P: int, dimension: int, seed: int):
+    """The engine of a ``WIDE_CASES`` entry (an additive scheme), its
+    reconstruction matrix, and ``P`` encoded secrets with and without
+    caller randomness."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.engine import TorchAggregationEngine
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.sharing import AdditiveScheme
+
+    bits = {"p63special": 63, "p127special": 127}[modulus]
+    p = find_special_prime_field(bits, 8, 9)[0]
+    eng = TorchAggregationEngine(AdditiveScheme(share_count=clerks, modulus=p).device_spec(),
+                                 dimension, device=DEVICE)
+    rng = np.random.default_rng(seed)
+    rec = eng.spec.reconstruct_matrix
+    if n_out is not None:
+        rec = rng.integers(0, p, size=(clerks, n_out), dtype=np.int64)
+    secrets = eng.encode_secrets(rng.integers(0, min(p, 1 << 62), size=(P, dimension)))
+    return eng, rec, secrets, torch.cat([secrets, eng.random_ext(P, rng=rng)], dim=2)
+
+
 def _ring_plans(eng, rows: int, P: int, rec, rp, n_chunks: int = 1):
     """The same plan on the card and on the CPU."""
     from sda_tpu_torch.ops import mxu8 as m8
@@ -438,11 +501,22 @@ def _max_err(got, want) -> int:
     return int((got.cpu().to(torch.int64) - want.cpu().to(torch.int64)).abs().max())
 
 
+def _ring_splits(rows: int):
+    """B2's split counts at a ring case of 3 chunks of ``rows`` rows: the
+    card's own choice (None), 1, 2 (each split crosses a chunk end), 5, and
+    more splits than the K tiles (some splits without any tile or draw)."""
+    from sda_tpu_torch.ops.mxu8 import KT
+
+    return (None, 1, 2, 5, 3 * -(-rows // KT) + 3)
+
+
 def phase_compare_ring():
-    """B1, B2 (3 chunks) and B3 (onto a non-zero accumulator) on the card
-    against their plain versions on CPU copies at every ring case, in
-    caller-randomness and PRNG mode, with and without fused
-    reconstruction. Returns (cases, max_abs_err) per kernel."""
+    """B1, B2 (3 chunks, at every split count of ``_ring_splits``) and B3
+    (onto a non-zero accumulator) on the card against their plain versions
+    on CPU copies at every ring case, in caller-randomness and PRNG mode,
+    with and without fused reconstruction; then the same at the
+    ``WIDE_CASES`` with reconstruction (B2 at the card's S, 1 and 2).
+    Returns (cases, max_abs_err) per kernel."""
     from sda_tpu_torch.ops import mxu8 as m8
 
     kernels = ("mxu8_fused", "mxu8_chunked", "mxu8_acc")
@@ -470,8 +544,10 @@ def phase_compare_ring():
                 check("mxu8_fused", m8.run_mxu8(plan, sec8[:rows], seed),
                       m8.run_mxu8(plan_cpu, sec8[:rows].cpu(), seed), label)
                 plan, plan_cpu = _ring_plans(eng, rows, P, rec, mode_rp, n_chunks=3)
-                check("mxu8_chunked", m8.run_mxu8(plan, sec8, seed, lanes=lanes),
-                      m8.run_mxu8(plan_cpu, sec8.cpu(), seed, lanes=lanes), label)
+                want = m8.run_mxu8(plan_cpu, sec8.cpu(), seed, lanes=lanes)
+                for splits in _ring_splits(rows):
+                    check("mxu8_chunked", m8.run_mxu8(plan, sec8, seed, lanes=lanes, splits=splits),
+                          want, f"{label} S={splits or 'chosen'}")
             plan, plan_cpu = _ring_plans(eng, rows, P, None, mode_rp)
             acc = m8.run_mxu8(plan, sec8[:rows], 7)
             if not int(acc.count_nonzero()):
@@ -479,6 +555,27 @@ def phase_compare_ring():
             check("mxu8_acc", m8.run_mxu8(plan, sec8[rows : 2 * rows], 8, acc_in=acc.clone()),
                   m8.run_mxu8(plan_cpu, sec8[rows : 2 * rows].cpu(), 8, acc_in=acc.cpu().clone()),
                   label)
+    lanes, P = 16, 2
+    for what, clerks, name, n_out in WIDE_CASES:
+        eng, rec, secrets, ext = _wide_inputs(clerks, name, n_out, 3 * P, 300, 15)
+        for mode, x in (("ext", ext), ("prng", secrets)):
+            sec8 = m8.planar8_from_batched(eng.mxu8, x, lanes)
+            rows = sec8.shape[0] // 3
+            mode_rp = 4 if mode == "prng" else None
+            label = f"{what} ({name}, {mode}, NBP={sec8.shape[1]}, K={rows})"
+            seed = 3000 + sum(cases.values())
+            plan, plan_cpu = _ring_plans(eng, rows, P, rec, mode_rp)
+            check("mxu8_fused", m8.run_mxu8(plan, sec8[:rows], seed),
+                  m8.run_mxu8(plan_cpu, sec8[:rows].cpu(), seed), label)
+            acc = m8.run_mxu8(plan, sec8[:rows], 7)
+            check("mxu8_acc", m8.run_mxu8(plan, sec8[rows : 2 * rows], 8, acc_in=acc.clone()),
+                  m8.run_mxu8(plan_cpu, sec8[rows : 2 * rows].cpu(), 8, acc_in=acc.cpu().clone()),
+                  label)
+            plan, plan_cpu = _ring_plans(eng, rows, P, rec, mode_rp, n_chunks=3)
+            want = m8.run_mxu8(plan_cpu, sec8.cpu(), seed, lanes=lanes)
+            for splits in (None, 1, 2):
+                check("mxu8_chunked", m8.run_mxu8(plan, sec8, seed, lanes=lanes, splits=splits),
+                      want, f"{label} S={splits or 'chosen'}")
     return cases, max_err
 
 
@@ -705,13 +802,36 @@ def _trace(fn):
     return (busy_us + hi - lo) / 1e3, wall_ms, len(spans)
 
 
+def _device_ms_by_kernel(fn, iters: int = 5) -> dict | None:
+    """Per-call device time (ms) of each kind of device activity ``fn``
+    makes, from a ``torch.profiler`` trace of ``iters`` calls after one
+    untraced call: ``{name: ms}``, or None when the trace holds no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i + 1)
+        torch.cuda.synchronize()
+    total = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {name: ms / iters for name, ms in total.items()} or None
+
+
 def phase_config3(mhz: float, iters: int = 20):
-    """128-bit, 2 chunks x 512 participants in ONE B2 launch."""
+    """128-bit, 2 chunks x 512 participants in ONE B2 call (a memset, the
+    split kernel and the epilogue kernel)."""
     import torch
 
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
-    from sda_tpu_torch.utils.profiling import cuda_time
+    from sda_tpu_torch.utils.profiling import cuda_time, cuda_time_samples
     from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
 
     c = CONFIG3
@@ -728,12 +848,17 @@ def phase_config3(mhz: float, iters: int = 20):
     torch.cuda.synchronize()
     counts = _counts()
     if counts != _only(mxu8_chunked=1):
-        raise AssertionError(f"config 3 step launched {counts}, not one B2 launch")
+        raise AssertionError(f"config 3 step launched {counts}, not one B2 call")
     if tuple(out.shape) != (engine.nb, k, L) or int(out.max()) > 0xFFFF or int(out.min()) < 0:
         raise AssertionError(f"config 3 output has shape {tuple(out.shape)} or limbs out of range")
     reveal_check_slice(engine, sec8, out, n_chunks * p_chunk, width=lanes, what="config 3")
 
     plan = engine._plan("share", rows, p_chunk, sec8.device, n_chunks)
+    splits = m8.launch_splits(plan, nbp, sec8.device)
+    lane_blocks = nbp // 128
+    if lane_blocks * splits < SMS:
+        raise AssertionError(f"config 3's B2 call launches {lane_blocks * splits} split blocks, "
+                             f"fewer than the {SMS} SMs")
     raw = m8.run_mxu8(plan, sec8, 1, lanes=lanes)
     t_plain = cuda_time(
         lambda i: m8._fused_share_combine_mxu8_plain(plan, sec8, 1, nbp // lanes), iters=1, warmup=0
@@ -742,19 +867,69 @@ def phase_config3(mhz: float, iters: int = 20):
     err = int((raw.to(torch.int64) - plain.to(torch.int64)).abs().max())
     if err:
         raise AssertionError(f"config 3 kernel != plain version: max err {err}")
+    del plain
     t = cuda_time(
         lambda i: engine.aggregate_mxu8_kernel_chunked(sec8, n_chunks, p_chunk, seed=2 + i,
                                                        lanes=lanes),
         iters=iters, warmup=3,
     )
+    # the card's own time for a step: windows of steps queued behind a
+    # stream spin, so the host's submission of a call (three operations
+    # now) is not in it
+    t_dev = cuda_time_samples(
+        lambda i: engine.aggregate_mxu8_kernel_chunked(sec8, n_chunks, p_chunk, seed=2 + i,
+                                                       lanes=lanes),
+        samples=5, iters=10,
+    )
     bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz)
+
+    # the call's kernels apart (torch.profiler), and the split kernel's two
+    # halves through cut plans at the same S (CUDA events): the K tiles
+    # without randomness, the draws behind one K tile per chunk, neither
+    by_kernel = _device_ms_by_kernel(lambda i: m8.run_mxu8(plan, sec8, i, lanes=lanes))
+    one_tile = sec8.view(n_chunks, rows, nbp)[:, : m8.KT].reshape(-1, nbp).contiguous()
+    no_rand = dataclasses.replace(plan, rp=0, Kr=0, words_per_p=0, n_bytes=0)
+    cut = {"K tiles, no randomness": (no_rand, sec8),
+           "draws, one tile a chunk": (dataclasses.replace(plan, rows=m8.KT), one_tile),
+           "neither": (dataclasses.replace(no_rand, rows=m8.KT), one_tile)}
+    phase_ms = {name: cuda_time(lambda i, q=q, x=x: m8.run_mxu8(q, x, i, lanes=lanes,
+                                                              splits=splits),
+                                iters=10, warmup=2).median_ms
+                for name, (q, x) in cut.items()}
+    # the whole call at other split counts
+    sweep_ms = {s: cuda_time(lambda i, s=s: m8.run_mxu8(plan, sec8, i, lanes=lanes, splits=s),
+                             iters=10, warmup=2).median_ms
+                for s in sorted({1, max(1, splits - 1), splits, splits + 1, 2 * splits})}
+    del sec8, raw, one_tile
+    torch.cuda.empty_cache()
     return {
-        "launches": counts["mxu8_chunked"], "timing": t, "plain_ms": t_plain.median_ms,
+        "launches": counts["mxu8_chunked"], "timing": t, "device_timing": t_dev,
+        "plain_ms": t_plain.median_ms,
         "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by, "parts": parts,
         "philox_call_ops": call_ops, "launch": _launch_report(plan, nbp),
+        "epilogue_launch": _launch_report(plan, nbp, epilogue=True),
+        "splits": splits, "lane_blocks": lane_blocks, "grid_blocks": lane_blocks * splits,
+        "by_kernel_ms": by_kernel, "phase_ms": phase_ms, "sweep_ms": sweep_ms,
         "shape": f"P={n_chunks}x{p_chunk} dim={c['dimension']} 128-bit rows={rows}/chunk "
                  f"NBP={nbp} lanes={lanes}",
     }
+
+
+def _b2_kernels(by_kernel) -> dict | None:
+    """The profiler's per-call device times of B2's memset and kernels."""
+    if by_kernel is None:
+        return None
+    names = {"split kernel": "mxu8_split_kernel", "epilogue kernel": "mxu8_epilogue_kernel",
+             "memset": "emset"}
+    return {label: sum(ms for name, ms in by_kernel.items() if key in name)
+            for label, key in names.items()}
+
+
+def _by_kernel_text(by_kernel) -> str:
+    got = _b2_kernels(by_kernel)
+    if got is None:
+        return "per-kernel times not measured (no device activity in the trace)"
+    return ", ".join(f"{label} {ms:.4f} ms" for label, ms in got.items())
 
 
 def phase_config4(mhz: float, iters: int = 5):
@@ -1364,22 +1539,25 @@ def _mxu8_bound(plan, nbp: int, mhz: float, acc: bool = False):
     return bound, "bytes" if parts["bytes"] == bound else "operations", parts, call_ops
 
 
-def _launch_report(plan, nbp: int, acc: bool = False) -> dict:
+def _launch_report(plan, nbp: int, acc: bool = False, epilogue: bool = False) -> dict:
     """Shared memory per block and resident blocks per SM of the launch
     (the CUDA occupancy calculator), and ptxas's registers and spilled
     bytes of the instance it launches: a B6 launch for a gen-3 plan, else
-    the B1/B2/B3 variant the plan and ``acc`` select."""
+    the B1/B2/B3 variant the plan and ``acc`` select (B2: its split kernel,
+    or with ``epilogue`` its epilogue kernel)."""
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.ops import mxu_kernel as m7
     from sda_tpu_torch.ops.cuda_build import ptxas_report
 
     if isinstance(plan, m7.MxuPlan):
         (smem, blocks), mt, variant = m7.kernel_occupancy(plan, nbp), m7.kernel_mt(plan), "mxu7_fused"
+        label = f"MT{mt}"
     else:
-        smem, blocks = m8.kernel_occupancy(plan, nbp, acc)
+        smem, blocks = m8.kernel_occupancy(plan, nbp, acc, epilogue)
         mt, variant = m8.kernel_mt(plan), m8._variant(plan, acc)
-    regs, spill = _ptxas_spills(ptxas_report(*_variants()[variant]))[f"MT{mt}"]
-    return {"smem_bytes": smem, "blocks_per_sm": blocks, "instance": f"MT{mt}",
+        label = f"epi{mt}" if epilogue else f"MT{mt}"
+    regs, spill = _ptxas_spills(ptxas_report(*_variants()[variant]))[label]
+    return {"smem_bytes": smem, "blocks_per_sm": blocks, "instance": label,
             "registers": regs, "spill_bytes": spill}
 
 
@@ -1862,10 +2040,12 @@ def phase_gen1_headline(mhz: float, iters: int = 5, rows: int = 8):
 
 def _probe_cases():
     """The probes at the shapes their tools give them: (name, input,
-    out_rows (T1, T2, T3) or output words (T1'), n_chunks, shape label)."""
+    out_rows (T1, T2, T3) or output words (T1'), n_chunks, splits (T3:
+    B2's at config 3), shape label)."""
     import torch
 
     from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops.mxu8 import launch_splits
     from sda_tpu_torch.tools._common import make_planar_secrets
 
     e2 = FederatedAggregation.packed_64bit(dimension=SERVING["dimension"]).engine
@@ -1875,18 +2055,21 @@ def _probe_cases():
     c = CONFIG3
     rows3 = c["p_chunk"] * e3.spec.secret_count * e3.mxu8.L8
     nbp3 = -(-e3.nb // c["lanes"]) * c["lanes"]
+    splits3 = launch_splits(e3._plan("share", rows3, c["p_chunk"], DEVICE, c["n_chunks"]), nbp3,
+                            DEVICE)
     return [
         ("T1", make_planar_secrets(e2, 101, rows2, job_lanes), e2.ctx.L * e2.spec.secret_count, 1,
-         f"config-2 job: rows={rows2} NBP={job_lanes}"),
-        ("T1'", torch.zeros((8, 128), dtype=torch.int8, device=DEVICE), 8 * 128, 1,
+         None, f"config-2 job: rows={rows2} NBP={job_lanes}"),
+        ("T1'", torch.zeros((8, 128), dtype=torch.int8, device=DEVICE), 8 * 128, 1, None,
          "bare: 1 KB in, 4 KB out"),
         ("T2", make_planar_secrets(e2, 102, rows2, SERVING["jobs"] * job_lanes),
-         e2.ctx.L * e2.spec.secret_count, 1,
+         e2.ctx.L * e2.spec.secret_count, 1, None,
          f"serving: rows={rows2} NBP={SERVING['jobs'] * job_lanes}"),
         ("T3", torch.cat([make_planar_secrets(e3, 103 + i, rows3, nbp3)
                           for i in range(c["n_chunks"])]),
-         e3.ctx.L * e3.spec.secret_count, c["n_chunks"],
-         f"config 3: {c['n_chunks']} chunks x rows={rows3} NBP={nbp3}"),
+         e3.ctx.L * e3.spec.secret_count, c["n_chunks"], splits3,
+         f"config 3: {c['n_chunks']} chunks x rows={rows3} NBP={nbp3}, B2's split grid: S="
+         f"{splits3} x {nbp3 // 128} lane blocks = {splits3 * nbp3 // 128} blocks"),
     ]
 
 
@@ -1901,33 +2084,37 @@ def phase_probe_compare():
     from sda_tpu_torch.ops import probes
     from sda_tpu_torch.utils.profiling import cuda_time_samples
 
-    def run(name, x, out_size, n_chunks, seed):
+    def run(name, x, out_size, n_chunks, splits, seed):
         if name == "T1'":
             return probes.probe_t1_bare(x, out_size, seed)
         if name == "T3":
-            return probes.probe_t3(x, out_size, n_chunks, seed)
+            return probes.probe_t3(x, out_size, n_chunks, seed, splits)
         return (probes.probe_t1 if name == "T1" else probes.probe_t2)(x, out_size, seed)
 
     res = {}
-    for name, x, out_size, n_chunks, shape in _probe_cases():
+    for name, x, out_size, n_chunks, splits, shape in _probe_cases():
         seed = 0x9E3779B9  # bit 31 set: the int32 view of the fill is negative
-        out, sink = run(name, x, out_size, n_chunks, seed)
+        out, sink = run(name, x, out_size, n_chunks, splits, seed)
         torch.cuda.synchronize()
-        want_out, want_sink = run(name, x.cpu(), out_size, n_chunks, seed)
+        want_out, want_sink = run(name, x.cpu(), out_size, n_chunks, splits, seed)
         err = max(int((out.cpu().to(torch.int64) - want_out.to(torch.int64)).abs().max()),
                   int((sink.cpu().to(torch.int64) - want_sink.to(torch.int64)).abs().max()))
         if err or int(out[0].flatten()[0]) & 0xFFFFFFFF != seed:
             raise AssertionError(f"probe {name} != its plain version: max err {err}")
         if probes.xor_words(sink) != probes.xor_words(x):
             raise AssertionError(f"probe {name}: the sinks' XOR != torch's XOR of the input")
-        t = cuda_time_samples(lambda i: run(name, x, out_size, n_chunks, i), samples=5, iters=10)
-        sink_plain = probes.xor_words if name == "T1'" else probes._sink_plain
+        t = cuda_time_samples(lambda i: run(name, x, out_size, n_chunks, splits, i), samples=5,
+                              iters=10)
+        if name == "T1'":
+            sink_plain = probes.xor_words
+        else:
+            sink_plain = functools.partial(probes._sink_plain, n_chunks=n_chunks, splits=splits)
         t_plain = cuda_time_samples(lambda i: (out.fill_(i), sink_plain(x)), samples=3, iters=2)
         t_lib = cuda_time_samples(lambda i: probes.library_probe(x, out, i), samples=5, iters=10)
         nbytes = probes.probe_bytes(x, out, sink)
         res[name] = {"max_abs_err": err, "timing": t, "plain_ms": t_plain.median_ms,
                      "library_ms": t_lib.median_ms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
-                     "bytes": nbytes, "shape": shape}
+                     "bytes": nbytes, "shape": shape, "splits": splits}
         del x, out, sink
     torch.cuda.empty_cache()
     return res
@@ -2020,6 +2207,17 @@ def main() -> int:
         listed = " ".join(f"{k}:{regs} registers/{sp} B spilled"
                           for k, (regs, sp) in spills.items())
         print(f"build: ptxas spills {variant}: {listed}", flush=True)
+        kept = KEPT_PTXAS.get(variant)
+        if kept is not None:
+            now = tuple(spills.get(f"MT{mt}") for mt in range(1, 13))
+            diff = [f"MT{mt}: {was} -> {got}" for mt, (was, got) in enumerate(zip(kept, now), 1)
+                    if got != was]
+            print(f"build: ptxas {variant} MT1-MT12 against the counts it was measured with "
+                  f"(PERF.md § 6): {'equal' if not diff else 'CHANGED ' + ', '.join(diff)}",
+                  flush=True)
+            if diff:
+                raise AssertionError(f"{variant}'s ptxas registers/spills moved from KEPT_PTXAS: "
+                                     + ", ".join(diff))
     from sda_tpu_torch.ops.chacha_kernel import KERNEL_VARIANTS as CHACHA_VARIANTS
 
     sass = {**_sass_listing(*CHACHA_VARIANTS["chacha"]), **_sass_listing(*variants["planar_cios"]),
@@ -2038,8 +2236,10 @@ def main() -> int:
     ring_cases, ring_err = phase_compare_ring()
     print(f"compare: ring cases ({len(RING_CASES)} shapes: K below one tile, below the ring, not "
           f"a multiple of 64; rp=1, 4 and 7; 128-bit; NBP past the last block; 4-byte and byte "
-          f"copies; ones row inside the MMA's tiles): B1 {ring_cases['mxu8_fused']}, B2 (3 "
-          f"chunks) {ring_cases['mxu8_chunked']}, B3 {ring_cases['mxu8_acc']} cases bit-equal",
+          f"copies; ones row inside the MMA's tiles) and {len(WIDE_CASES)} wide plans (MT 12 and "
+          f"MT 11 with PRNG and reconstruction; more outputs than clerks): B1 "
+          f"{ring_cases['mxu8_fused']}, B2 (3 chunks; S = the card's choice, 1, 2, 5 and the "
+          f"tiles + 3) {ring_cases['mxu8_chunked']}, B3 {ring_cases['mxu8_acc']} cases bit-equal",
           flush=True)
     cmp_err = max(cmp_err, ring_err["mxu8_fused"])
     for kernel in ("mxu8_chunked", "mxu8_acc"):
@@ -2062,12 +2262,27 @@ def main() -> int:
     c3 = phase_config3(mhz)
     t3 = c3["timing"]
     total3 = CONFIG3["n_chunks"] * CONFIG3["p_chunk"]
-    print(f"config 3: {c3['shape']} on {card}: one B2 launch, median {t3.median_ms:.4f} ms "
+    print(f"config 3: {c3['shape']} on {card}: one B2 call (memset, mxu8_split_kernel, "
+          f"mxu8_epilogue_kernel), median {t3.median_ms:.4f} ms "
           f"(min {t3.min_ms:.4f}, max {t3.max_ms:.4f}, {len(t3.samples_ms)} steps), "
           f"{total3 / (t3.median_ms / 1e3):.0f} aggregations/s; bound {c3['bound_ms']:.4f} ms "
           f"({c3['bound_by']}; Philox issue {c3['parts']['philox']:.4f} at "
-          f"{c3['philox_call_ops']} per call); plain on card {c3['plain_ms']:.1f} ms; reveal exact; "
-          f"{_launch_text(c3['launch'])}", flush=True)
+          f"{c3['philox_call_ops']} per call); plain on card {c3['plain_ms']:.1f} ms; reveal exact",
+          flush=True)
+    td = c3["device_timing"]
+    print(f"config 3: the card's time for a step (windows queued behind a spin) median "
+          f"{td.median_ms:.4f} ms (min {td.min_ms:.4f}, max {td.max_ms:.4f}), "
+          f"{c3['bound_ms'] / td.median_ms:.4f} of the bound", flush=True)
+    print(f"config 3: S={c3['splits']} splits x {c3['lane_blocks']} lane blocks = "
+          f"{c3['grid_blocks']} split blocks; split kernel: {_launch_text(c3['launch'])}; "
+          f"epilogue kernel ({c3['lane_blocks']} blocks): {_launch_text(c3['epilogue_launch'])}",
+          flush=True)
+    ph = c3["phase_ms"]
+    print(f"config 3: phases: {_by_kernel_text(c3['by_kernel_ms'])} (torch.profiler); at S="
+          f"{c3['splits']}, whole calls of cut plans (events): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in ph.items())
+          + "; the whole call at S = "
+          + ", ".join(f"{sp}: {ms:.4f} ms" for sp, ms in c3["sweep_ms"].items()), flush=True)
 
     c4 = phase_config4(mhz)
     s4 = c4["step"]
@@ -2250,9 +2465,11 @@ def main() -> int:
           f"wrote {tools['lane_batch']['path'].relative_to(root)}", flush=True)
     best, ctl, bc = sweep["best"], sweep["controls_at_best"], sweep["noop_at_best_chunked"]
     print(f"tool config-3 sweep: {len(sweep['rows'])} launches on {card}, best n_chunks="
-          f"{best['n_chunks']} NBP={best['nbp']} {best['ms']:.4f} ms "
+          f"{best['n_chunks']} NBP={best['nbp']} S={best['splits']} ({best['grid_blocks']} "
+          f"blocks) {best['ms']:.4f} ms "
           f"({best['fraction_of_sol']:.4f} of its bound); best of more than one chunk "
-          f"n_chunks={bc['n_chunks']} NBP={bc['nbp']} {bc['real_ms']:.4f} ms, its T3 copy floor "
+          f"n_chunks={bc['n_chunks']} NBP={bc['nbp']} S={bc['splits']} ({bc['grid_blocks']} "
+          f"blocks) {bc['real_ms']:.4f} ms, its T3 copy floor "
           f"{bc['noop_ms']:.4f} ms ({bc['copy_floor_tb_s']:.3f} TB/s); at the best, T3 copy floor "
           f"{ctl['noop_dma_floor_ms']:.4f} ms "
           f"({ctl['copy_floor_tb_s']:.3f} TB/s; library {ctl['library_tb_s']:.3f} TB/s), combined "
@@ -2312,6 +2529,14 @@ def main() -> int:
             **c3["launch"],
             "library_ms": None,
             "shape": c3["shape"],
+            "device_ms": c3["device_timing"].median_ms,
+            "splits": c3["splits"],
+            "grid_blocks": c3["grid_blocks"],
+            "kernels": ["mxu8_split_kernel", "mxu8_epilogue_kernel"],
+            "epilogue_launch": c3["epilogue_launch"],
+            "by_kernel_ms": _b2_kernels(c3["by_kernel_ms"]),
+            "phase_ms": c3["phase_ms"],
+            "splits_sweep_ms": {str(k): v for k, v in c3["sweep_ms"].items()},
         },
         {
             "name": "mxu8_acc",
@@ -2465,9 +2690,12 @@ def main() -> int:
             }),
             ("probe_t3", "config3", "tools/measure_config3_variants.py:126", ("T3",), {
                 "tool_noop_ms": sweep["controls_at_best"]["noop_dma_floor_ms"],
-                "tool_shape": f"n_chunks={sweep['best']['n_chunks']} NBP={sweep['best']['nbp']}",
+                "tool_shape": f"n_chunks={sweep['best']['n_chunks']} NBP={sweep['best']['nbp']} "
+                              f"S={sweep['best']['splits']}",
                 "tool_chunked_noop_ms": bc["noop_ms"],
-                "tool_chunked_shape": f"n_chunks={bc['n_chunks']} NBP={bc['nbp']}",
+                "tool_chunked_shape": f"n_chunks={bc['n_chunks']} NBP={bc['nbp']} "
+                                      f"S={bc['splits']}",
+                "splits": pc["T3"]["splits"],
             }),
         )),
     ]}))

@@ -28,7 +28,8 @@ on a CPU tensor, in their plain versions:
 - gen 4, byte limbs (:mod:`sda_tpu_torch.ops.mxu8`):
 
   - ``aggregate_mxu8_kernel``: one participant chunk, one launch (B1);
-  - ``aggregate_mxu8_kernel_chunked``: stacked chunks, one launch (B2);
+  - ``aggregate_mxu8_kernel_chunked``: stacked chunks, one call (B2: the
+    K work split across blocks, then an epilogue kernel);
   - ``aggregate_mxu8_kernel_streaming``: chunks from the host, one launch
     each onto one running accumulator (B1, then B3), then
     ``reconstruct_planar8`` (B1);
@@ -524,7 +525,7 @@ class TorchAggregationEngine:
 
     def aggregate_mxu8_kernel_chunked(self, sec8_stacked, n_chunks: int, p_chunk: int,
                                       seed: int = 0, lanes: int = 1024):
-        """A whole multi-chunk job in ONE launch (B2) with fused
+        """A whole multi-chunk job in ONE call (B2) with fused
         reconstruction: ``sec8_stacked`` stacks ``n_chunks`` planar chunks of
         ``p_chunk`` participants along its rows. Returns ``[nb, k, L]``."""
         out = self._fused(sec8_stacked, seed, p_chunk, lanes, reconstruct=True,

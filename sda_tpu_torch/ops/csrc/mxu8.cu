@@ -11,14 +11,46 @@
 //      before it stores their sum to the same addresses, so the in-place
 //      update needs no synchronisation.
 //   2  B2, replaces sda_tpu/ops/mxu8.py::_mxu8_kernel_chunked (:496): n_chunks
-//      stacked participant chunks reduced in ONE launch. The TPU walked the
-//      chunks as a sequential grid axis with a VMEM accumulator; here each
-//      block loops over the chunks itself, runs B1's whole pipeline on rows
-//      [c * K, (c + 1) * K) (offsets in size_t: c * K * nbp passes 2^31),
-//      adds the canonical limbs mod p into a shared-memory accumulator
-//      (L * n_out * 128 lanes * 4 B, 32 KB at 128-bit without
-//      reconstruction) and writes out once, after the last chunk.
+//      stacked participant chunks reduced in ONE call. The TPU walked the
+//      chunks as a sequential grid axis with a VMEM accumulator. Here the
+//      K work of each 128-lane block is split across blocks ("split K",
+//      below), and one call runs a memset and two kernels:
+//        mxu8_split_kernel     grid lane_blocks x S: block (lane block b,
+//                              split s) runs B1's ring K loop over its
+//                              range of (chunk, K tile) and its range of
+//                              (chunk, randomness draw), and adds its int32
+//                              partial sums into a zeroed workspace;
+//        mxu8_epilogue_kernel  one block per lane block: per chunk, the
+//                              draw sums' bytes against bigR, the carry
+//                              chains, stage 2 and the fold; the chunks'
+//                              canonical limbs add mod p in shared memory
+//                              and out is written once, after the last.
+//                              bigR and big2 stay resident when they
+//                              fit, else stream through two one-tile
+//                              slots, so its shared memory need not grow
+//                              with their columns.
 //      Chunk c draws its randomness with key seed + c * seed_stride.
+//
+// Split K (B2). A lane block's work is the list of n_chunks * ceil(K / 64)
+// (chunk, tile) pairs; split s of S takes pairs [s * total / S, (s + 1) *
+// total / S), cut where a chunk ends (each chunk has its own rows and
+// seed), and likewise its share of the n_chunks * rp (chunk, draw) pairs.
+// The caller chooses S (ops/mxu8.py, chunked_splits: as many as fill the
+// card's block slots in one wave). The workspace is int32 [n_chunks][n * L8
+// + 1 + 2 * wpp][nbp rounded up to 4]: the stage-1 rows, the ones row, then
+// the draws' u32 sums accR and accO per PRNG word. Each block adds its partials
+// with red.global.add (atomicAdd, result unused), from a shared-memory copy
+// of its accumulator so that a warp's adds hit 32 consecutive words. This
+// is exact: stage 1 accumulates int32 with wrap-around (mma.sync .s32, no
+// .satfinite), the draw sums are u32 with wrap-around, and addition mod
+// 2^32 is associative and commutative, so any split and any order of the
+// partial sums gives the same 32-bit words as one block's loop over all of
+// K and all draws (and the per-chunk carry-chain bound keeps the true
+// column values below 2^32 anyway). The draws' byte extraction (accE = accR
+// - (accO << 16)) is not linear, so it runs only where the sums meet, in
+// the epilogue kernel, and so does bigR's pass. Per-chunk sums stay per
+// chunk: chunk c's partials go to workspace slab c, and the chunks meet only
+// as canonical limbs, added mod p.
 //
 // Every variant computes, per lane (batch position) b and chunk:
 //
@@ -30,9 +62,10 @@
 //                           fold, or Montgomery chunk fold)
 //
 // Design:
-//   * One block of 256 threads (8 warps) per tile of kT = 128 lanes; blocks
-//     are independent (the TPU grid carried nothing across lane blocks
-//     either; B2's chunk reduction stays inside the block).
+//   * One block of 256 threads (8 warps) per tile of kT = 128 lanes (B1,
+//     B3; B2's epilogue kernel), or per (tile, split) (B2's split kernel);
+//     lane blocks are independent (the TPU grid carried nothing across them
+//     either).
 //   * Stage-1 contraction on the int8 tensor cores with
 //     mma.sync.m16n8k32.s32.s8.s8.s32. Each warp owns 16 lanes (two n8
 //     tiles) and the MT m16 tiles of the n * L8 output rows before the
@@ -63,7 +96,9 @@
 //     slower on the H100 (PERF.md, the kernel's findings).
 //   * Epilogue: the accumulator is spilled to shared memory (over the ring);
 //     two threads per lane run the carry chains, the optional stage-2
-//     contraction (88 x 25 at the headline, scalar), the fold, and the
+//     contraction (88 x 25 at the headline, scalar; in B2's epilogue kernel
+//     on the tensor cores, n outputs a pass, since its 28 blocks at config 3
+//     made the scalar loop as long as the whole K loop), the fold, and the
 //     limb-major output writes.
 //
 // Bounds on the H100 SXM. B1 at the headline (768 participants, 1,000,002
@@ -81,9 +116,10 @@
 // transposes. B3 adds a read and a write of the running sums (43 MB at
 // that shape) to B1's bytes. B2 reads every chunk once; at the 128-bit
 // config-3 shape (2 x 512 participants, NBP 3,584) sec is 0.176 GB, so its
-// bound is about 0.05 ms, but 3,584 lanes make only 28 blocks for 132 SMs,
-// so the kernel is bound by too few blocks long before bytes; a split of K
-// across blocks is later work.
+// bound is about 0.05 ms. Its 3,584 lanes make only 28 lane blocks for 132
+// SMs; one block per lane block held it to ~0.1 TB/s, so B2 splits each
+// lane block's K work S ways (S = 9 at 2 blocks per SM: 252 blocks). Its
+// workspace (4.6 MB there) stays in the 50 MB L2.
 
 #include <cstdint>
 #include <type_traits>
@@ -216,10 +252,11 @@ __device__ void fold_and_store(const uint32_t* bytes, int nb, const Params& p,
 // B2 and B3's form of fold_and_store for lane ll of the block (global lane
 // gl); B1 calls fold_and_store itself, so its code is what it was before
 // the variants existed. B3 adds the canonical limbs mod p onto the limbs
-// out holds; B2 adds them mod p into the shared-memory accumulator
-// sCanon ([L][n_out][kT]) and stores the sum only for the last chunk. Each
-// (i, ll) belongs to one thread for the whole launch, so neither the
-// accumulator nor out needs a barrier between its read and its write.
+// out holds (sCanon, first and last unused); B2's epilogue kernel adds them
+// mod p into the shared-memory accumulator sCanon ([L][n_out][kT]) and
+// stores the sum only for the last chunk. Each (i, ll) belongs to one
+// thread for the whole launch, so neither the accumulator nor out needs a
+// barrier between its read and its write.
 template <int MODE>
 __device__ void fold_and_emit(const uint32_t* bytes, int nb, const Params& p,
                               const uint32_t* tables, int32_t* out, uint32_t* sCanon, int n_out,
@@ -255,34 +292,138 @@ __device__ void fold_and_emit(const uint32_t* bytes, int nb, const Params& p,
 constexpr int kStages = 4;  // ring depth: three tiles in flight beside the MMA
 
 // Shared memory of one block (host and device agree through this struct):
-//   [sCanon (B2 only)] [union]
-//   union, in the K loop and the bigR pass: [ring: kStages stages of
-//     (raw sec tile | bigS slice: MT * 16 rows, then the ones row)]
-//     [sB: kT rows x sb bytes]
-//   union, in the epilogue: [sAcc: spilled accumulator] [sB1: stage-2 bytes]
+//   B1, B3: a union of
+//     in the K loop and the bigR pass: [ring: kStages stages of (raw sec
+//     tile | bigS slice: MT * 16 rows, then the ones row)] [sB: kT rows x
+//     sb bytes]
+//     in the epilogue: [sAcc: spilled accumulator] [sB1: stage-2 bytes]
+//   B2's split kernel: [ring] [sB: one K tile a row], then sAcc over them
+//     for the partials' adds
+//   B2's epilogue kernel: [sCanon: the chunks' canonical sum] [big2's ones
+//     row], then bigR and big2 resident or streamed (epilogue_smem)
 struct Layout {
   int sb;           // sB row stride (== 16 mod 32)
   int stage_bytes;  // one ring stage
-  int canon_bytes;  // B2's canonical accumulator
+  int canon_bytes;  // bytes before the union: sCanon (B2's epilogue kernel), else 0
   int spill_bytes;  // sAcc
   int smem;         // the whole block
   int vec_a;        // bigS copy width: 16, 8 or 4
   int vec_b;        // sec copy width: 16, 4 or 1
 };
 
+__host__ __device__ __forceinline__ int max_of(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ int round16(int x) { return (x + 15) / 16 * 16; }
+
+// Rows of one chunk's slab of B2's workspace: the stage-1 rows, the ones
+// row, then (PRNG mode) the draws' sums accR and accO of each PRNG word.
+__host__ __device__ __forceinline__ int ws_rows(const Params& p) {
+  return p.n * p.L8 + 1 + (p.Kr > 0 ? 2 * p.wpp : 0);
+}
+
+// The workspace's row pitch in lanes: nbp rounded up to 4, so that the
+// epilogue kernel reads a row's lanes 16 bytes at a time.
+__host__ __device__ __forceinline__ int ws_pitch(const Params& p) { return (p.nbp + 3) & ~3; }
+
 template <int MT>
 Layout make_layout(const Params& p, const void* sec, const void* bigs) {
   Layout l;
-  l.sb = (p.Kr_pad > kKT ? p.Kr_pad : kKT) + 16;
+  l.sb = max_of(p.Kr_pad, kKT) + 16;
   l.stage_bytes = kRawBytes + (MT * 16 + 1) * kSA;
-  l.canon_bytes = kMode == kChunked ? p.L * (p.n2 ? p.n2 : p.n) * kT * 4 : 0;
+  l.canon_bytes = 0;
   l.spill_bytes = (p.n * p.L8 + 1) * kT * 4;
   const int loop_bytes = kStages * l.stage_bytes + kT * l.sb;
   const int epi_bytes = l.spill_bytes + (p.n2 ? p.rows2 * kT : 0);
-  l.smem = l.canon_bytes + ((loop_bytes > epi_bytes ? loop_bytes : epi_bytes) + 15) / 16 * 16;
+  l.smem = round16(max_of(loop_bytes, epi_bytes));
   const auto a = reinterpret_cast<uintptr_t>(bigs), s = reinterpret_cast<uintptr_t>(sec);
   l.vec_a = (p.K % 16 == 0 && a % 16 == 0) ? 16 : (p.K % 8 == 0 && a % 8 == 0) ? 8 : 4;
   l.vec_b = (p.nbp % 16 == 0 && s % 16 == 0) ? 16 : (p.nbp % 4 == 0 && s % 4 == 0) ? 4 : 1;
+  return l;
+}
+
+template <int MT>
+Layout split_layout(const Params& p, const void* sec, const void* bigs) {
+  Layout l = make_layout<MT>(p, sec, bigs);
+  l.sb = kKT + 16;  // the randomness bytes go to the epilogue kernel
+  l.smem = round16(max_of(kStages * l.stage_bytes + kT * l.sb, l.spill_bytes));
+  return l;
+}
+
+// Row stride of B2's stage-2 operand in shared memory: rows2 bytes rounded
+// up to the MMA's k32 steps, == 16 mod 32.
+__host__ __device__ __forceinline__ int stage2_stride(const Params& p) {
+  return (p.rows2 + 31) / 32 * 32 + 16;
+}
+
+// One slot of B2's epilogue kernel: a tile of MT * 16 rows x kKT columns
+// of bigR or big2 (row stride kSA), the layout mma_chunk reads.
+template <int MT>
+__host__ __device__ __forceinline__ int slot_bytes() {
+  return MT * 16 * kSA;
+}
+
+// Bytes of big2's ones row in B2's epilogue kernel: rows2 rounded up,
+// zero past rows2, so that dp4a reads it a word at a time.
+__host__ __device__ __forceinline__ int ones2_bytes(const Params& p) {
+  return p.n2 ? round16(p.rows2) : 0;
+}
+
+// K tiles of bigR (PRNG mode) and of big2 (reconstruction).
+__host__ __device__ __forceinline__ int tiles_r(const Params& p) {
+  return p.Kr ? (p.Kr_pad + kKT - 1) / kKT : 0;
+}
+__host__ __device__ __forceinline__ int tiles_2(const Params& p) {
+  return p.n2 ? (p.rows2 + kKT - 1) / kKT : 0;
+}
+
+// sAcc of B2's epilogue kernel: the spilled accumulator, or, streaming,
+// the two slots of big2 tiles while stage 2's MMA runs.
+template <int MT>
+__host__ __device__ __forceinline__ int epilogue_acc_bytes(const Params& p, bool resident) {
+  return round16(max_of((p.n * p.L8 + 1) * kT * 4, resident ? 0 : 2 * slot_bytes<MT>()));
+}
+
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory of one block on the H100
+
+// B2's epilogue kernel: [sCanon] [big2's ones row] then, resident, [every
+// tile of bigR and big2, staged once] [a union of (sB: the randomness
+// bytes) and (sAcc | sB2: the stage-1 bytes, a row per lane)]; streaming,
+// [a union of (sB | two slots of bigR tiles) and (sAcc, whose first bytes
+// are two slots of big2 tiles during stage 2's MMA | sB2)]. Streaming, it
+// is the single-kernel B2's layout (sCanon, then B1's) less its ring, plus
+// at most 6,448 B of stage-2 padding and the ones row: every plan with n2
+// <= n (L8 even) that the single kernel ran fits.
+template <int MT>
+__host__ __device__ __forceinline__ int epilogue_smem(const Params& p, bool resident) {
+  const int sb = max_of(p.Kr_pad, kKT) + 16;
+  const int slots = resident ? 0 : 2 * slot_bytes<MT>();
+  const int rand_bytes = p.Kr ? kT * sb + slots : 0;
+  const int epi_bytes = epilogue_acc_bytes<MT>(p, resident) + (p.n2 ? kT * stage2_stride(p) : 0);
+  return p.L * (p.n2 ? p.n2 : p.n) * kT * 4 + ones2_bytes(p) +
+         (resident ? (tiles_r(p) + tiles_2(p)) * slot_bytes<MT>() : 0) +
+         round16(max_of(rand_bytes, epi_bytes));
+}
+
+// Whether B2's epilogue kernel keeps bigR and big2 resident: when they fit
+// and stage 2 is one pass (n2 <= n, so its n2 * L8 rows fit the MT tiles).
+// Else they stream from L2 each pass, and stage 2 takes n outputs a pass.
+template <int MT>
+__host__ __device__ __forceinline__ bool epilogue_resident(const Params& p) {
+  return p.n2 <= p.n && epilogue_smem<MT>(p, true) <= kMaxSmem;
+}
+
+// Resident big2 rows staged: the n2 * L8 output rows, and its ones row
+// after them when that still lies inside the MT tiles (the MMA then sums
+// it; else dp4a does, from big2's ones row in shared memory).
+template <int MT>
+__host__ __device__ __forceinline__ int resident_rows2(const Params& p) {
+  return p.n2 * p.L8 + (p.n2 * p.L8 < MT * 16 ? 1 : 0);
+}
+
+template <int MT>
+Layout epilogue_layout(const Params& p) {
+  Layout l = make_layout<MT>(p, nullptr, nullptr);
+  l.canon_bytes = p.L * (p.n2 ? p.n2 : p.n) * kT * 4;  // L limbs of n_out results a lane
+  l.smem = epilogue_smem<MT>(p, epilogue_resident<MT>(p));
   return l;
 }
 
@@ -310,15 +451,246 @@ __device__ __forceinline__ void issue_tile(unsigned char* ring, const Layout& la
     ring_load_a<4>(sA, bigs, p.K, MT * 16, ones, k0, tid);
 }
 
+// Stage 1 over K tiles [t_begin, t_end) of one chunk through the ring: acc
+// += bigS^T . sec, and ones[x] += the ones row's sums for lanes 16 warp +
+// 4 (lane & 3) + x (dp4a in the transpose; the MMA covers rows < MT * 16).
+// Every thread of a lane quad's column holds part of those sums. Ends with
+// no copy in flight; the caller syncs before the ring is reused.
+template <int MT>
+__device__ __forceinline__ void k_loop(int (&acc)[MT][2][4], int (&ones)[4], unsigned char* ring,
+                                       int8_t* sB, const Layout& lay, const int8_t* sec,
+                                       const int8_t* bigs, const Params& p, int t_begin,
+                                       int t_end, int lane0, int tid, int warp, int lane) {
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (t_begin + s < t_end) issue_tile<MT>(ring, lay, sec, bigs, p, t_begin + s, lane0, tid);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();               // ... every thread's, and tile t - 1's stage is free
+    if (t + kStages - 1 < t_end)
+      issue_tile<MT>(ring, lay, sec, bigs, p, t + kStages - 1, lane0, tid);
+    cp_async_commit();
+    const int8_t* raw = reinterpret_cast<const int8_t*>(ring + (t % kStages) * lay.stage_bytes);
+    ring_transpose_b(sB, lay.sb, raw, raw + kRawBytes + MT * 16 * kSA, ones, warp, lane);
+    __syncwarp();
+    mma_chunk<MT>(acc, raw + kRawBytes, sB, lay.sb, 0, (min(kKT, p.K - t * kKT) + 31) / 32, warp,
+                  lane);
+  }
+  cp_async_wait<0>();
+}
+
+// Rows [0, ones_row) of the accumulator fragments into sAcc ([rows][kT]):
+// c0/c1 at row g, c2/c3 at row g + 8 of each m16 tile.
+template <int MT>
+__device__ __forceinline__ void spill_acc(int32_t* sAcc, const int (&acc)[MT][2][4], int ones_row,
+                                          int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
+      if (r < ones_row) {
+        sAcc[r * kT + col] = acc[mt][nt][0];
+        sAcc[r * kT + col + 1] = acc[mt][nt][1];
+      }
+      if (r + 8 < ones_row) {
+        sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
+        sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
+      }
+    }
+}
+
+// Start the copy of rows [0, min(nrows, MT * 16)) x columns [kc, kc +
+// kKT) of a row-major int8 matrix with lda columns into the slot dst (row
+// stride kSA; zero past lda; the rows past nrows are not written, and the
+// MMA rows they make are not read). cp.async of 16, 8 or 4 bytes as the
+// stride and address allow, else byte loads, eight in flight a thread.
+template <int MT>
+__device__ __forceinline__ void stage_tile(int8_t* dst, const int8_t* A, int lda, int nrows,
+                                           int kc, int tid) {
+  const int rows = min(nrows, MT * 16);
+  const auto a = reinterpret_cast<uintptr_t>(A);
+  const int vec = (lda % 16 == 0 && a % 16 == 0) ? 16
+                  : (lda % 8 == 0 && a % 8 == 0) ? 8
+                  : (lda % 4 == 0 && a % 4 == 0) ? 4 : 1;
+  if (vec == 16)
+    ring_load_a<16, false>(dst, A, lda, rows, 0, kc, tid);
+  else if (vec == 8)
+    ring_load_a<8, false>(dst, A, lda, rows, 0, kc, tid);
+  else if (vec == 4)
+    ring_load_a<4, false>(dst, A, lda, rows, 0, kc, tid);
+  else
+    for (int base = 0; base < rows * kKT; base += 8 * kThreads) {
+      int8_t v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * kThreads + tid, col = kc + idx % kKT;
+        v[u] = idx < rows * kKT && col < lda ? A[(size_t)(idx / kKT) * lda + col] : (int8_t)0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * kThreads + tid;
+        if (idx < rows * kKT) dst[idx / kKT * kSA + idx % kKT] = v[u];
+      }
+    }
+}
+
+// Start the copies of A's first K tiles into the slots (A as stage_tile
+// reads it): all T tiles when they fit the nslots slots (resident), else
+// tile 0 of a double-buffered pass. The slots must be free.
+template <int MT>
+__device__ __forceinline__ void stream_begin(int8_t* slots, int nslots, const int8_t* A, int lda,
+                                             int nrows, int tid) {
+  const int T = (lda + kKT - 1) / kKT;
+  for (int t = 0; t < (T <= nslots ? T : 1); ++t)
+    stage_tile<MT>(slots + t * slot_bytes<MT>(), A, lda, nrows, t * kKT, tid);
+  cp_async_commit();
+}
+
+// After stream_begin with the same A: acc += A[0, min(nrows, MT * 16)) x
+// [0, lda) against the B operand sBop (row stride sbop, K-contiguous per
+// lane). With every tile resident, one wait and one barrier; else tile t +
+// 1's copy is in flight beside tile t's MMA. The first barrier publishes
+// the caller's writes to sBop; ends with a barrier after the last MMA.
+template <int MT>
+__device__ __forceinline__ void stream_mma(int (&acc)[MT][2][4], int8_t* slots, int nslots,
+                                           const int8_t* A, int lda, int nrows,
+                                           const int8_t* sBop, int sbop, int tid, int warp,
+                                           int lane) {
+  const int T = (lda + kKT - 1) / kKT;
+  if (T <= nslots) {
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int t = 0; t < T; ++t)
+      mma_chunk<MT>(acc, slots + t * slot_bytes<MT>(), sBop, sbop, t * kKT,
+                    (min(kKT, lda - t * kKT) + 31) / 32, warp, lane);
+    __syncthreads();
+    return;
+  }
+  for (int t = 0; t < T; ++t) {
+    // the MMA of tile t - 1, which read this slot, ended at the last barrier
+    if (t + 1 < T)
+      stage_tile<MT>(slots + ((t + 1) & 1) * slot_bytes<MT>(), A, lda, nrows, (t + 1) * kKT, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed (this thread's copies)
+    __syncthreads();     // ... every thread's
+    mma_chunk<MT>(acc, slots + (t & 1) * slot_bytes<MT>(), sBop, sbop, t * kKT,
+                  (min(kKT, lda - t * kKT) + 31) / 32, warp, lane);
+    __syncthreads();
+  }
+}
+
+// B2's epilogue of one chunk over the accumulator sAcc ([n * L8 + 1][kT],
+// the ones row last), two threads per lane: the stage-1 carry chains; with
+// reconstruction, their bytes (biased, K-contiguous per lane in sB2)
+// against big2 on the tensor cores and the stage-2 chains, n outputs a
+// pass (their n * L8 rows fit the MT tiles and sAcc for any n2), big2's
+// rows in s2 (resident: all its tiles, staged; else two slots over sAcc,
+// restaged each pass) and its ones row (sOnes2) by dp4a; the fold; the
+// chunk's canonical limbs summed in sCanon (fold_and_emit).
+template <int MT>
+__device__ __forceinline__ void chunk_epilogue(int32_t* sAcc, int8_t* sB2, int sb2, int8_t* s2,
+                                               bool resident, const int8_t* sOnes2,
+                                               const int8_t* big2,
+                                               const uint32_t* tables, int32_t* out,
+                                               uint32_t* sCanon, const Params& p, int lane0,
+                                               int tid, int warp, int lane, bool first,
+                                               bool last) {
+  const int n_out = p.n2 ? p.n2 : p.n;
+  const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
+  const int L8 = p.L8;
+  const uint32_t* c1 = tables + p.off_c1;
+  uint32_t bytes[kMaxB];
+  const uint32_t s128 = (uint32_t)sAcc[(p.n * L8) * kT + ll] * 128u;
+  for (int i = half; i < p.n; i += kThreads / kT) {
+    uint32_t carry = 0;
+    for (int c = 0; c < L8; ++c) {
+      const uint32_t t = (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[i * L8 + c] + s128 + carry;
+      bytes[c] = t & 0xFFu;
+      carry = t >> 8;
+    }
+    for (int r = 0; r < p.n_res1; ++r) {
+      bytes[L8 + r] = carry & 0xFFu;
+      carry >>= 8;
+    }
+    if (p.n2) {
+      for (int l1 = 0; l1 < L8 + p.n_res1; ++l1)
+        sB2[ll * sb2 + l1 * p.n + i] = (int8_t)(bytes[l1] ^ 0x80u);
+    } else if (gl < p.nbp) {
+      fold_and_emit<kChunked>(bytes, L8 + p.n_res1, p, tables, out, sCanon, n_out, i, ll, gl,
+                              first, last);
+    }
+  }
+  if (!p.n2) return;
+  __syncthreads();  // sB2 is complete and sAcc's stage-1 rows are read
+  const int nslots = resident ? tiles_2(p) : 2;
+  if (!resident) stream_begin<MT>(s2, nslots, big2, p.rows2, min(p.n, p.n2) * L8, tid);
+  // big2's ones row (row n2 * L8) against lane ll's bytes: from the MMA's
+  // row n2 * L8 below when it was staged, else here
+  const int mma_rows = resident ? resident_rows2<MT>(p) : 0;
+  int ones2 = 0;
+  if (mma_rows <= p.n2 * L8) {
+    const int* w = reinterpret_cast<const int*>(sOnes2);
+    const int* b = reinterpret_cast<const int*>(sB2 + ll * sb2);
+    for (int c = 0; c < ones2_bytes(p) / 4; ++c) ones2 = __dp4a(b[c], w[c], ones2);
+  }
+  const uint32_t* c2 = tables + p.off_c2;
+  for (int o0 = 0; o0 < p.n2; o0 += p.n) {
+    const int go = min(p.n, p.n2 - o0);
+    const int8_t* A = big2 + (size_t)(o0 * L8) * p.rows2;
+    if (o0) {
+      __syncthreads();  // the last pass's chains are done with sAcc
+      stream_begin<MT>(s2, nslots, A, p.rows2, go * L8, tid);
+    }
+    int acc2[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc2[mt][nt][q] = 0;
+    stream_mma<MT>(acc2, s2, nslots, A, p.rows2, go * L8, sB2, sb2, tid, warp, lane);
+    spill_acc<MT>(sAcc, acc2, max_of(go * L8, mma_rows), warp, lane);
+    __syncthreads();
+    const uint32_t s128_2 =
+        (mma_rows > p.n2 * L8 ? (uint32_t)sAcc[(p.n2 * L8) * kT + ll] : (uint32_t)ones2) * 128u;
+    for (int i2 = half; i2 < go; i2 += kThreads / kT) {
+      uint32_t carry = 0;
+      for (int c = 0; c < L8; ++c) {
+        const uint32_t t =
+            (uint32_t)sAcc[(i2 * L8 + c) * kT + ll] + c2[(o0 + i2) * L8 + c] + s128_2 + carry;
+        bytes[c] = t & 0xFFu;
+        carry = t >> 8;
+      }
+      for (int r = 0; r < p.n_res2; ++r) {
+        bytes[L8 + r] = carry & 0xFFu;
+        carry >>= 8;
+      }
+      if (gl < p.nbp)
+        fold_and_emit<kChunked>(bytes, L8 + p.n_res2, p, tables, out, sCanon, n_out, o0 + i2, ll,
+                                gl, first, last);
+    }
+  }
+}
+
+// B1 and B3 (MODE kPlain, kAcc): one block per 128 lanes, the whole
+// pipeline. B2's kernels share its K loop and epilogue as helpers
+// (k_loop, spill_acc, chunk_epilogue); this kernel keeps its own copy of
+// them, as it was measured, since B1's and B3's register allocation
+// (chip_smoke.py, KEPT_PTXAS) moved when it was recast into the helpers.
+// For the same reason its shared memory starts at the run-time offset
+// lay.canon_bytes (0 here): with the constant base, ptxas allocated
+// B1's MT1 and B3's MT1 differently (64/68 -> 64/96, 64/92 -> 64/72).
 template <int MT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
                   const int8_t* __restrict__ bigr, const int8_t* __restrict__ big2,
                   const uint32_t* __restrict__ tables, int32_t* __restrict__ out, Params p,
                   Layout lay) {
+  static_assert(MODE != kChunked, "B2 runs mxu8_split_kernel and mxu8_epilogue_kernel");
   extern __shared__ __align__(16) unsigned char smem[];
-  // B2's canonical accumulator, kept across chunks; the union after it
-  uint32_t* sCanon = reinterpret_cast<uint32_t*>(smem);
   unsigned char* un = smem + lay.canon_bytes;
   unsigned char* ring = un;
   int8_t* sB = reinterpret_cast<int8_t*>(un + kStages * lay.stage_bytes);
@@ -330,17 +702,322 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
   const int lane0 = blockIdx.x * kT;
   const int ones_row = p.n * p.L8;  // the all-ones row of bigS and bigR, the last one used
   const int n_out = p.n2 ? p.n2 : p.n;
-  const int nch = MODE == kChunked ? p.n_chunks : 1;
   const int T = (p.K + kKT - 1) / kKT;
   const int groups = (p.wpp + 3) / 4;
 
-  for (int ch = 0; ch < nch; ++ch) {
-    const int8_t* sec_c = MODE == kChunked ? sec + (size_t)ch * p.K * p.nbp : sec;
-    const uint32_t seed_c = MODE == kChunked ? p.seed + (uint32_t)ch * p.seed_stride : p.seed;
-    const bool first = ch == 0, last = ch == nch - 1;
-    // the previous chunk's epilogue is done with the union
-    if (!first) __syncthreads();
+  int acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+  // the ones row's sums for lanes 16 warp + 4 (lane & 3) + x, over this
+  // thread's k quads (dp4a in the transpose; the MMA covers rows < MT * 16)
+  int ones[4] = {0, 0, 0, 0};
 
+  // stage 1: bigS^T . sec through the ring
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < T) issue_tile<MT>(ring, lay, sec, bigs, p, s, lane0, tid);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();               // ... every thread's, and tile t - 1's stage is free
+    if (t + kStages - 1 < T) issue_tile<MT>(ring, lay, sec, bigs, p, t + kStages - 1, lane0, tid);
+    cp_async_commit();
+    const int8_t* raw = reinterpret_cast<const int8_t*>(ring + (t % kStages) * lay.stage_bytes);
+    ring_transpose_b(sB, sb, raw, raw + kRawBytes + MT * 16 * kSA, ones, warp, lane);
+    __syncwarp();
+    mma_chunk<MT>(acc, raw + kRawBytes, sB, sb, 0, (min(kKT, p.K - t * kKT) + 31) / 32, warp,
+                  lane);
+  }
+  cp_async_wait<0>();
+  // every thread of a lane quad's column (lane & 3) holds part of its sums
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int m = 4; m < 32; m <<= 1) ones[x] += __shfl_xor_sync(0xFFFFFFFFu, ones[x], m);
+
+  // in-kernel randomness: u16-field sums over rp draws -> biased bytes
+  int rand_ones = 0;
+  if (p.Kr > 0) {
+    __syncthreads();  // every warp is done with its sB rows
+    for (int idx = tid; idx < kT * groups; idx += kThreads) {
+      const int ll = idx % kT, g = idx / kT, gl = lane0 + ll;
+      uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
+      if (gl < p.nbp) {
+        // one call per iteration: chip_smoke.py counts this loop's SASS
+#pragma unroll 1
+        for (int j = 0; j < p.rp; ++j) {
+          uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
+          philox4x32_10(c, p.seed, 0u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            accR[q] += c[q];
+            accO[q] += c[q] >> 16;
+          }
+        }
+      }
+      int8_t* row = sB + ll * sb;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int w = 4 * g + q;
+        if (w >= p.wpp) continue;
+        // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
+        const uint32_t accE = accR[q] - (accO[q] << 16);
+        for (int cb = 0; cb < p.n_bytes; ++cb) {
+          row[(2 * cb) * p.wpp + w] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
+          row[(2 * cb + 1) * p.wpp + w] = (int8_t)(byte_of(accO[q], cb) ^ 0x80u);
+        }
+      }
+    }
+    int8_t* sA = reinterpret_cast<int8_t*>(ring + kRawBytes);  // stage 0's bigS slice
+    for (int kc = 0; kc < p.Kr_pad; kc += kKT) {
+      __syncthreads();
+      load_a_tile(sA, bigr, p.Kr_pad, p.n_pad, MT * 16, kc, tid);
+      __syncthreads();
+      mma_chunk<MT>(acc, sA, sB, sb, kc, min(kKT, p.Kr_pad - kc) / 32, warp, lane);
+    }
+    // the ones row of bigR against lane tid's randomness bytes
+    if (tid < kT) {
+      const int* w1 = reinterpret_cast<const int*>(bigr + (size_t)ones_row * p.Kr_pad);
+      const int* b = reinterpret_cast<const int*>(sB + tid * sb);
+      for (int c = 0; c < p.Kr_pad / 4; ++c) rand_ones = __dp4a(b[c], w1[c], rand_ones);
+    }
+  }
+  __syncthreads();  // the spill below overwrites the ring and sB
+
+  // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8; the ones
+  // row from the dp4a sums (and, in PRNG mode, bigR's part added after)
+  {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
+        if (r < ones_row) {
+          sAcc[r * kT + col] = acc[mt][nt][0];
+          sAcc[r * kT + col + 1] = acc[mt][nt][1];
+        }
+        if (r + 8 < ones_row) {
+          sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
+          sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
+        }
+      }
+    if (g == 0)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) sAcc[ones_row * kT + warp * 16 + 4 * t + x] = ones[x];
+  }
+  __syncthreads();
+  if (p.Kr > 0) {
+    if (tid < kT) sAcc[ones_row * kT + tid] += rand_ones;
+    __syncthreads();
+  }
+  // epilogue: two threads per lane
+  const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
+  const int L8 = p.L8;
+  const uint32_t* c1 = tables + p.off_c1;
+  uint32_t bytes[kMaxB];
+  const uint32_t s128 = (uint32_t)sAcc[(p.n * L8) * kT + ll] * 128u;
+  for (int i = half; i < p.n; i += kThreads / kT) {
+    uint32_t carry = 0;
+    for (int c = 0; c < L8; ++c) {
+      const uint32_t t = (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[i * L8 + c] + s128 + carry;
+      bytes[c] = t & 0xFFu;
+      carry = t >> 8;
+    }
+    for (int r = 0; r < p.n_res1; ++r) {
+      bytes[L8 + r] = carry & 0xFFu;
+      carry >>= 8;
+    }
+    if (p.n2) {
+      for (int l1 = 0; l1 < L8 + p.n_res1; ++l1) sB1[(l1 * p.n + i) * kT + ll] = (uint8_t)bytes[l1];
+    } else if (gl < p.nbp) {
+      if constexpr (MODE == kPlain)
+        fold_and_store(bytes, L8 + p.n_res1, p, tables, out, p.n, i, gl);
+      else
+        fold_and_emit<MODE>(bytes, L8 + p.n_res1, p, tables, out, nullptr, n_out, i, ll, gl,
+                            true, true);
+    }
+  }
+  if (p.n2) {
+    __syncthreads();
+    const uint32_t* c2 = tables + p.off_c2;
+    const int8_t* ones_row = big2 + (size_t)(p.n2 * L8) * p.rows2;
+    int ones = 0;
+    for (int q = 0; q < p.rows2; ++q) ones += ones_row[q] * ((int)sB1[q * kT + ll] - 128);
+    const uint32_t s128_2 = (uint32_t)ones * 128u;
+    for (int i2 = half; i2 < p.n2; i2 += kThreads / kT) {
+      uint32_t carry = 0;
+      for (int c = 0; c < L8; ++c) {
+        const int8_t* row = big2 + (size_t)(i2 * L8 + c) * p.rows2;
+        int a = 0;
+        for (int q = 0; q < p.rows2; ++q) a += row[q] * ((int)sB1[q * kT + ll] - 128);
+        const uint32_t t = (uint32_t)a + c2[i2 * L8 + c] + s128_2 + carry;
+        bytes[c] = t & 0xFFu;
+        carry = t >> 8;
+      }
+      for (int r = 0; r < p.n_res2; ++r) {
+        bytes[L8 + r] = carry & 0xFFu;
+        carry >>= 8;
+      }
+      if (gl < p.nbp) {
+        if constexpr (MODE == kPlain)
+          fold_and_store(bytes, L8 + p.n_res2, p, tables, out, p.n2, i2, gl);
+        else
+          fold_and_emit<MODE>(bytes, L8 + p.n_res2, p, tables, out, nullptr, n_out, i2, ll, gl,
+                              true, true);
+      }
+    }
+  }
+}
+
+// f(chunk, begin, end) for each piece of split s of S over the flattened
+// list of n_chunks * per_chunk (chunk, item) pairs: pairs [s * total / S,
+// (s + 1) * total / S), cut where a chunk ends.
+template <typename F>
+__device__ __forceinline__ void for_pieces(int per_chunk, int n_chunks, int s, int S, F&& f) {
+  const long long total = (long long)per_chunk * n_chunks;
+  long long i = total * s / S;
+  const long long end = total * (s + 1) / S;
+  while (i < end) {
+    const int c = (int)(i / per_chunk), b = (int)(i % per_chunk);
+    const int e = (int)min((long long)per_chunk, b + (end - i));
+    f(c, b, e);
+    i += e - b;
+  }
+}
+
+// B2, split kernel: block (lane block blockIdx.x % lane_blocks, split
+// blockIdx.x / lane_blocks). Its K tiles: stage 1 per chunk piece, the
+// int32 partials (and the ones row's sums) added into the chunk's slab of
+// ws. Its draws: the Philox sums accR, accO per (lane, PRNG word) added
+// into the slab's randomness rows. Two blocks per SM up to MT 8 (the
+// config-3 instance): 128 registers a thread.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, MT <= 8 ? 2 : 1)
+mxu8_split_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
+                  int32_t* __restrict__ ws, Params p, Layout lay, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  int8_t* sB = reinterpret_cast<int8_t*>(smem + kStages * lay.stage_bytes);
+  int32_t* sAcc = reinterpret_cast<int32_t*>(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lane_blocks = (p.nbp + kT - 1) / kT;
+  const int s = blockIdx.x / lane_blocks, lane0 = (blockIdx.x % lane_blocks) * kT;
+  const int ones_row = p.n * p.L8;
+  const int rows = ws_rows(p), pitch = ws_pitch(p);
+
+  for_pieces(
+      (p.K + kKT - 1) / kKT, p.n_chunks, s, splits, [&](int ch, int t_begin, int t_end) {
+        int acc[MT][2][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+        int ones[4] = {0, 0, 0, 0};
+        __syncthreads();  // the previous piece's adds are done with sAcc
+        k_loop<MT>(acc, ones, ring, sB, lay, sec + (size_t)ch * p.K * p.nbp, bigs, p, t_begin,
+                   t_end, lane0, tid, warp, lane);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) ones[x] += __shfl_xor_sync(0xFFFFFFFFu, ones[x], m);
+        __syncthreads();  // every warp is done with the ring and sB
+        spill_acc<MT>(sAcc, acc, ones_row, warp, lane);
+        if ((lane >> 2) == 0)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            sAcc[ones_row * kT + warp * 16 + 4 * (lane & 3) + x] = ones[x];
+        __syncthreads();
+        int32_t* slab = ws + (size_t)ch * rows * pitch;
+        for (int idx = tid; idx < (ones_row + 1) * kT; idx += kThreads) {
+          const int gl = lane0 + idx % kT;
+          if (gl < p.nbp) atomicAdd(slab + (size_t)(idx / kT) * pitch + gl, sAcc[idx]);
+        }
+      });
+
+  if (p.Kr > 0) {
+    const int groups = (p.wpp + 3) / 4;
+    for_pieces(p.rp, p.n_chunks, s, splits, [&](int ch, int j_begin, int j_end) {
+      const uint32_t seed_c = p.seed + (uint32_t)ch * p.seed_stride;
+      auto* sums = reinterpret_cast<unsigned*>(ws + ((size_t)ch * rows + ones_row + 1) * pitch);
+      for (int idx = tid; idx < kT * groups; idx += kThreads) {
+        const int g = idx / kT, gl = lane0 + idx % kT;
+        if (gl >= p.nbp) continue;
+        uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
+        // one call per iteration: chip_smoke.py counts this loop's SASS
+#pragma unroll 1
+        for (int j = j_begin; j < j_end; ++j) {
+          uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
+          philox4x32_10(c, seed_c, 0u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            accR[q] += c[q];
+            accO[q] += c[q] >> 16;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int w = 4 * g + q;
+          if (w >= p.wpp) continue;
+          atomicAdd(sums + (size_t)w * pitch + gl, accR[q]);
+          atomicAdd(sums + (size_t)(p.wpp + w) * pitch + gl, accO[q]);
+        }
+      }
+    });
+  }
+}
+
+// B2, epilogue kernel: one block per lane block, the chunks in turn. bigR
+// and big2 are staged once when they fit (epilogue_resident), else
+// streamed each pass, their copies started before the operand they meet
+// is written. A chunk's draw sums become the biased bytes of the
+// randomness operand (accE = accR - (accO << 16), exact for the whole
+// sum), bigR's pass adds their product into fresh fragments, and the
+// fragments plus the slab's stage-1 rows are the accumulator that
+// chunk_epilogue takes.
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+mxu8_epilogue_kernel(const int32_t* __restrict__ ws, const int8_t* __restrict__ bigr,
+                     const int8_t* __restrict__ big2, const uint32_t* __restrict__ tables,
+                     int32_t* __restrict__ out, Params p, Layout lay) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool resident = epilogue_resident<MT>(p);
+  uint32_t* sCanon = reinterpret_cast<uint32_t*>(smem);
+  int8_t* sOnes2 = reinterpret_cast<int8_t*>(smem + lay.canon_bytes);  // big2's ones row
+  int8_t* mats = sOnes2 + ones2_bytes(p);  // resident: bigR's tiles, then big2's
+  const int mats_bytes = resident ? (tiles_r(p) + tiles_2(p)) * slot_bytes<MT>() : 0;
+  unsigned char* un = reinterpret_cast<unsigned char*>(mats) + mats_bytes;
+  int8_t* sB = reinterpret_cast<int8_t*>(un);  // randomness bytes
+  int32_t* sAcc = reinterpret_cast<int32_t*>(un);
+  int8_t* sB2 = reinterpret_cast<int8_t*>(un + epilogue_acc_bytes<MT>(p, resident));  // stage 2's
+  const int sb = lay.sb, sb2 = stage2_stride(p);
+  int8_t* sR = resident ? mats : sB + kT * sb;  // bigR's tiles, or two slots after sB
+  int8_t* s2 = resident ? mats + tiles_r(p) * slot_bytes<MT>() : reinterpret_cast<int8_t*>(sAcc);
+  const int nslots_r = resident ? tiles_r(p) : 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lane0 = blockIdx.x * kT;
+  const int ones_row = p.n * p.L8;
+  const int rows = ws_rows(p), pitch = ws_pitch(p);
+  if (p.n2) {
+    const int8_t* w = big2 + (size_t)(p.n2 * p.L8) * p.rows2;
+    for (int q = tid; q < ones2_bytes(p); q += kThreads) sOnes2[q] = q < p.rows2 ? w[q] : 0;
+  }
+  if (resident) {  // one commit group each; the first pass's wait takes both
+    if (p.Kr) stream_begin<MT>(sR, nslots_r, bigr, p.Kr_pad, p.n_pad, tid);
+    if (p.n2) stream_begin<MT>(s2, tiles_2(p), big2, p.rows2, resident_rows2<MT>(p), tid);
+  }
+
+  for (int ch = 0; ch < p.n_chunks; ++ch) {
+    const int32_t* slab = ws + (size_t)ch * rows * pitch;
+    if (ch) __syncthreads();  // the previous chunk's epilogue is done with the union
     int acc[MT][2][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -348,180 +1025,75 @@ mxu8_fused_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ big
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
-    // the ones row's sums for lanes 16 warp + 4 (lane & 3) + x, over this
-    // thread's k quads (dp4a in the transpose; the MMA covers rows < MT * 16)
-    int ones[4] = {0, 0, 0, 0};
-
-    // stage 1: bigS^T . sec through the ring
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < T) issue_tile<MT>(ring, lay, sec_c, bigs, p, s, lane0, tid);
-      cp_async_commit();
-    }
-    for (int t = 0; t < T; ++t) {
-      cp_async_wait<kStages - 2>();  // tile t has landed (this thread's copies)
-      __syncthreads();               // ... every thread's, and tile t - 1's stage is free
-      if (t + kStages - 1 < T) issue_tile<MT>(ring, lay, sec_c, bigs, p, t + kStages - 1, lane0, tid);
-      cp_async_commit();
-      const int8_t* raw = reinterpret_cast<const int8_t*>(ring + (t % kStages) * lay.stage_bytes);
-      ring_transpose_b(sB, sb, raw, raw + kRawBytes + MT * 16 * kSA, ones, warp, lane);
-      __syncwarp();
-      mma_chunk<MT>(acc, raw + kRawBytes, sB, sb, 0, (min(kKT, p.K - t * kKT) + 31) / 32, warp,
-                    lane);
-    }
-    cp_async_wait<0>();
-    // every thread of a lane quad's column (lane & 3) holds part of its sums
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int m = 4; m < 32; m <<= 1) ones[x] += __shfl_xor_sync(0xFFFFFFFFu, ones[x], m);
-
-    // in-kernel randomness: u16-field sums over rp draws -> biased bytes
     int rand_ones = 0;
     if (p.Kr > 0) {
-      __syncthreads();  // every warp is done with its sB rows
-      for (int idx = tid; idx < kT * groups; idx += kThreads) {
-        const int ll = idx % kT, g = idx / kT, gl = lane0 + ll;
-        uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
+      if (!resident) stream_begin<MT>(sR, 2, bigr, p.Kr_pad, p.n_pad, tid);
+      const auto* sums = reinterpret_cast<const uint32_t*>(slab + (size_t)(ones_row + 1) * pitch);
+#pragma unroll 4
+      for (int idx = tid; idx < kT * p.wpp; idx += kThreads) {
+        const int ll = idx % kT, w = idx / kT, gl = lane0 + ll;
+        uint32_t accR = 0, accO = 0;
         if (gl < p.nbp) {
-          // one call per iteration: chip_smoke.py counts this loop's SASS
-#pragma unroll 1
-          for (int j = 0; j < p.rp; ++j) {
-            uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
-            philox4x32_10(c, seed_c, 0u);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              accR[q] += c[q];
-              accO[q] += c[q] >> 16;
-            }
-          }
+          accR = sums[(size_t)w * pitch + gl];
+          accO = sums[(size_t)(p.wpp + w) * pitch + gl];
         }
+        // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
+        const uint32_t accE = accR - (accO << 16);
         int8_t* row = sB + ll * sb;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int w = 4 * g + q;
-          if (w >= p.wpp) continue;
-          // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
-          const uint32_t accE = accR[q] - (accO[q] << 16);
-          for (int cb = 0; cb < p.n_bytes; ++cb) {
-            row[(2 * cb) * p.wpp + w] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
-            row[(2 * cb + 1) * p.wpp + w] = (int8_t)(byte_of(accO[q], cb) ^ 0x80u);
-          }
+        for (int cb = 0; cb < p.n_bytes; ++cb) {
+          row[(2 * cb) * p.wpp + w] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
+          row[(2 * cb + 1) * p.wpp + w] = (int8_t)(byte_of(accO, cb) ^ 0x80u);
         }
       }
-      int8_t* sA = reinterpret_cast<int8_t*>(ring + kRawBytes);  // stage 0's bigS slice
-      for (int kc = 0; kc < p.Kr_pad; kc += kKT) {
-        __syncthreads();
-        load_a_tile(sA, bigr, p.Kr_pad, p.n_pad, MT * 16, kc, tid);
-        __syncthreads();
-        mma_chunk<MT>(acc, sA, sB, sb, kc, min(kKT, p.Kr_pad - kc) / 32, warp, lane);
-      }
-      // the ones row of bigR against lane tid's randomness bytes
+      stream_mma<MT>(acc, sR, nslots_r, bigr, p.Kr_pad, p.n_pad, sB, sb, tid, warp, lane);
       if (tid < kT) {
         const int* w1 = reinterpret_cast<const int*>(bigr + (size_t)ones_row * p.Kr_pad);
         const int* b = reinterpret_cast<const int*>(sB + tid * sb);
         for (int c = 0; c < p.Kr_pad / 4; ++c) rand_ones = __dp4a(b[c], w1[c], rand_ones);
       }
+      __syncthreads();  // the spill below overwrites sB
     }
-    __syncthreads();  // the spill below overwrites the ring and sB
-
-    // spill the accumulator: c0/c1 at row g, c2/c3 at row g + 8; the ones
-    // row from the dp4a sums (and, in PRNG mode, bigR's part added after)
-    {
-      const int g = lane >> 2, t = lane & 3;
+    spill_acc<MT>(sAcc, acc, ones_row, warp, lane);
+    if (tid < kT) sAcc[ones_row * kT + tid] = rand_ones;
+    __syncthreads();
+    // the split blocks' sums, 16 bytes a load, eight loads in flight a
+    // thread (the pitch's lanes past nbp hold zeros)
+    const int n_acc4 = (ones_row + 1) * (kT / 4);
+    for (int base = 0; base < n_acc4; base += 8 * kThreads) {
+      int4 v[8];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * kThreads + tid, gl = lane0 + 4 * (idx % (kT / 4));
+        v[u] = idx < n_acc4 && gl < pitch
+                   ? *reinterpret_cast<const int4*>(slab + (size_t)(idx / (kT / 4)) * pitch + gl)
+                   : make_int4(0, 0, 0, 0);
+      }
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int r = mt * 16 + g, col = warp * 16 + nt * 8 + 2 * t;
-          if (r < ones_row) {
-            sAcc[r * kT + col] = acc[mt][nt][0];
-            sAcc[r * kT + col + 1] = acc[mt][nt][1];
-          }
-          if (r + 8 < ones_row) {
-            sAcc[(r + 8) * kT + col] = acc[mt][nt][2];
-            sAcc[(r + 8) * kT + col + 1] = acc[mt][nt][3];
-          }
-        }
-      if (g == 0)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) sAcc[ones_row * kT + warp * 16 + 4 * t + x] = ones[x];
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * kThreads + tid;
+        if (idx >= n_acc4) continue;
+        int4* d = reinterpret_cast<int4*>(sAcc) + idx;
+        const int4 x = *d;
+        *d = make_int4(x.x + v[u].x, x.y + v[u].y, x.z + v[u].z, x.w + v[u].w);
+      }
     }
     __syncthreads();
-    if (p.Kr > 0) {
-      if (tid < kT) sAcc[ones_row * kT + tid] += rand_ones;
-      __syncthreads();
-    }
-    // epilogue: two threads per lane
-    const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
-    const int L8 = p.L8;
-    const uint32_t* c1 = tables + p.off_c1;
-    uint32_t bytes[kMaxB];
-    const uint32_t s128 = (uint32_t)sAcc[(p.n * L8) * kT + ll] * 128u;
-    for (int i = half; i < p.n; i += kThreads / kT) {
-      uint32_t carry = 0;
-      for (int c = 0; c < L8; ++c) {
-        const uint32_t t = (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[i * L8 + c] + s128 + carry;
-        bytes[c] = t & 0xFFu;
-        carry = t >> 8;
-      }
-      for (int r = 0; r < p.n_res1; ++r) {
-        bytes[L8 + r] = carry & 0xFFu;
-        carry >>= 8;
-      }
-      if (p.n2) {
-        for (int l1 = 0; l1 < L8 + p.n_res1; ++l1) sB1[(l1 * p.n + i) * kT + ll] = (uint8_t)bytes[l1];
-      } else if (gl < p.nbp) {
-        if constexpr (MODE == kPlain)
-          fold_and_store(bytes, L8 + p.n_res1, p, tables, out, p.n, i, gl);
-        else
-          fold_and_emit<MODE>(bytes, L8 + p.n_res1, p, tables, out, sCanon, n_out, i, ll, gl,
-                              first, last);
-      }
-    }
-    if (p.n2) {
-      __syncthreads();
-      const uint32_t* c2 = tables + p.off_c2;
-      const int8_t* ones_row = big2 + (size_t)(p.n2 * L8) * p.rows2;
-      int ones = 0;
-      for (int q = 0; q < p.rows2; ++q) ones += ones_row[q] * ((int)sB1[q * kT + ll] - 128);
-      const uint32_t s128_2 = (uint32_t)ones * 128u;
-      for (int i2 = half; i2 < p.n2; i2 += kThreads / kT) {
-        uint32_t carry = 0;
-        for (int c = 0; c < L8; ++c) {
-          const int8_t* row = big2 + (size_t)(i2 * L8 + c) * p.rows2;
-          int a = 0;
-          for (int q = 0; q < p.rows2; ++q) a += row[q] * ((int)sB1[q * kT + ll] - 128);
-          const uint32_t t = (uint32_t)a + c2[i2 * L8 + c] + s128_2 + carry;
-          bytes[c] = t & 0xFFu;
-          carry = t >> 8;
-        }
-        for (int r = 0; r < p.n_res2; ++r) {
-          bytes[L8 + r] = carry & 0xFFu;
-          carry >>= 8;
-        }
-        if (gl < p.nbp) {
-          if constexpr (MODE == kPlain)
-            fold_and_store(bytes, L8 + p.n_res2, p, tables, out, p.n2, i2, gl);
-          else
-            fold_and_emit<MODE>(bytes, L8 + p.n_res2, p, tables, out, sCanon, n_out, i2, ll, gl,
-                                first, last);
-        }
-      }
-    }
+    chunk_epilogue<MT>(sAcc, sB2, sb2, s2, resident, sOnes2, big2, tables, out, sCanon, p, lane0,
+                       tid, warp, lane, ch == 0, ch == p.n_chunks - 1);
   }
 }
 
-template <int MT>
-int set_smem(const Layout& lay) {
-  return (int)cudaFuncSetAttribute(mxu8_fused_kernel<MT, kMode>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+// Raise a kernel's dynamic shared memory limit to lay.smem.
+template <typename Kernel>
+int set_smem(Kernel kernel, const Layout& lay) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
 }
 
 template <int MT>
 int launch(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, const int8_t* big2,
            const uint32_t* tables, int32_t* out, const Params& p, cudaStream_t stream) {
   const Layout lay = make_layout<MT>(p, sec, bigs);
-  const int err = set_smem<MT>(lay);
+  const int err = set_smem(mxu8_fused_kernel<MT, kMode>, lay);
   if (err) return err;
   const dim3 grid((p.nbp + kT - 1) / kT);
   mxu8_fused_kernel<MT, kMode><<<grid, kThreads, lay.smem, stream>>>(sec, bigs, bigr, big2, tables,
@@ -529,14 +1101,53 @@ int launch(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, const int8
   return (int)cudaGetLastError();
 }
 
+// B2: zero the workspace, then the split kernel (lane_blocks x splits
+// blocks) and the epilogue kernel (lane_blocks blocks), in stream order.
 template <int MT>
-int occupancy(const Params& p, int* smem_bytes, int* blocks_per_sm) {
-  const Layout lay = make_layout<MT>(p, nullptr, nullptr);
-  const int err = set_smem<MT>(lay);
+int launch_chunked(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, const int8_t* big2,
+                   const uint32_t* tables, int32_t* ws, int32_t* out, const Params& p, int splits,
+                   cudaStream_t stream) {
+  const Layout ls = split_layout<MT>(p, sec, bigs), le = epilogue_layout<MT>(p);
+  int err = set_smem(mxu8_split_kernel<MT>, ls);
+  if (!err) err = set_smem(mxu8_epilogue_kernel<MT>, le);
+  if (!err)
+    err = (int)cudaMemsetAsync(ws, 0, sizeof(int32_t) * p.n_chunks * ws_rows(p) *
+                                          (size_t)ws_pitch(p), stream);
+  if (err) return err;
+  const int lane_blocks = (p.nbp + kT - 1) / kT;
+  mxu8_split_kernel<MT><<<lane_blocks * splits, kThreads, ls.smem, stream>>>(sec, bigs, ws, p, ls,
+                                                                            splits);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  mxu8_epilogue_kernel<MT><<<lane_blocks, kThreads, le.smem, stream>>>(ws, bigr, big2, tables, out,
+                                                                      p, le);
+  return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+int occupancy_of(Kernel kernel, const Layout& lay, int* smem_bytes, int* blocks_per_sm) {
+  const int err = set_smem(kernel, lay);
   if (err) return err;
   *smem_bytes = lay.smem;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, mxu8_fused_kernel<MT, kMode>, kThreads, lay.smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                            lay.smem);
+}
+
+// Dynamic shared memory per block and resident blocks per SM of the launch;
+// for B2, of its split kernel (epilogue = 0) or its epilogue kernel (1).
+template <int MT>
+int occupancy(const Params& p, int epilogue, int* smem_bytes, int* blocks_per_sm) {
+  if constexpr (kMode == kChunked) {
+    if (epilogue)
+      return occupancy_of(mxu8_epilogue_kernel<MT>, epilogue_layout<MT>(p), smem_bytes,
+                          blocks_per_sm);
+    return occupancy_of(mxu8_split_kernel<MT>, split_layout<MT>(p, nullptr, nullptr), smem_bytes,
+                        blocks_per_sm);
+  } else {
+    if (epilogue) return (int)cudaErrorInvalidValue;
+    return occupancy_of(mxu8_fused_kernel<MT, kMode>, make_layout<MT>(p, nullptr, nullptr),
+                        smem_bytes, blocks_per_sm);
+  }
 }
 
 // f(std::integral_constant<int, MT>) for the m16 tiles of output rows the
@@ -604,10 +1215,11 @@ int parse_params(const void* iparams, int n_iparams, Params& p) {
 
 }  // namespace
 
-// C entry point of the variant this library was built as (SDA_MXU8_MODE).
-// iparams holds the kNParams ints of Params in field order (seed and
-// seed_stride as their 32-bit patterns). For B3, out holds the running sums
-// on entry. Returns a cudaError_t (0 on success).
+#if SDA_MXU8_MODE != 2
+// C entry point of B1 and B3 (SDA_MXU8_MODE 0 and 1). iparams holds the
+// kNParams ints of Params in field order (seed and seed_stride as their
+// 32-bit patterns). For B3, out holds the running sums on entry. Returns a
+// cudaError_t (0 on success).
 extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* bigr,
                               const void* big2, const void* tables, void* out,
                               const void* iparams, int n_iparams, void* stream) {
@@ -623,16 +1235,45 @@ extern "C" int sda_mxu8_fused(const void* sec, const void* bigs, const void* big
   auto st = static_cast<cudaStream_t>(stream);
   return with_mt(p, [&](auto mt) { return launch<decltype(mt)::value>(s, a, r, b2, tb, o, p, st); });
 }
+#else
+// C entry point of B2 (SDA_MXU8_MODE 2): the same arguments as
+// sda_mxu8_fused, plus ws, an int32 workspace of n_chunks * (n * L8 + 1 +
+// 2 * wpp) * pitch words (wpp: 0 without in-kernel randomness; pitch: nbp
+// rounded up to 4), 16-byte aligned, that the call zeroes and fills, and
+// splits >= 1, the split count S of every lane block's work. Returns a
+// cudaError_t (0 on success).
+extern "C" int sda_mxu8_chunked(const void* sec, const void* bigs, const void* bigr,
+                                const void* big2, const void* tables, void* ws, void* out,
+                                const void* iparams, int n_iparams, int splits, void* stream) {
+  Params p;
+  const int bad = parse_params(iparams, n_iparams, p);
+  if (bad) return bad;
+  if (splits < 1) return (int)cudaErrorInvalidValue;
+  const auto* s = static_cast<const int8_t*>(sec);
+  const auto* a = static_cast<const int8_t*>(bigs);
+  const auto* r = static_cast<const int8_t*>(bigr);
+  const auto* b2 = static_cast<const int8_t*>(big2);
+  const auto* tb = static_cast<const uint32_t*>(tables);
+  auto* w = static_cast<int32_t*>(ws);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  return with_mt(p, [&](auto mt) {
+    return launch_chunked<decltype(mt)::value>(s, a, r, b2, tb, w, o, p, splits, st);
+  });
+}
+#endif
 
-// The launch configuration sda_mxu8_fused would use for these parameters:
+// The launch configuration the entry point would use for these parameters:
 // dynamic shared memory per block and resident blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a cudaError_t.
-extern "C" int sda_mxu8_occupancy(const void* iparams, int n_iparams, int* smem_bytes,
-                                  int* blocks_per_sm) {
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for B2 of its split
+// kernel (epilogue = 0) or its epilogue kernel (epilogue = 1). Returns a
+// cudaError_t.
+extern "C" int sda_mxu8_occupancy(const void* iparams, int n_iparams, int epilogue,
+                                  int* smem_bytes, int* blocks_per_sm) {
   Params p;
   const int bad = parse_params(iparams, n_iparams, p);
   if (bad) return bad;
   return with_mt(p, [&](auto mt) {
-    return occupancy<decltype(mt)::value>(p, smem_bytes, blocks_per_sm);
+    return occupancy<decltype(mt)::value>(p, epilogue, smem_bytes, blocks_per_sm);
   });
 }

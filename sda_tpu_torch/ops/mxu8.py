@@ -42,7 +42,12 @@ Two variants of the kernel go past it, as the reference's do:
 - ``n_chunks > 1`` (B2): ``sec_planar`` stacks ``n_chunks`` chunks of
   ``p_count`` participants along its rows; each chunk runs the whole
   single-chunk pipeline, their canonical results are added mod p, and the
-  sum is written once, by ONE launch.
+  sum is written once, by ONE call. On the card that call splits each
+  128-lane block's K tiles and randomness draws ``S`` ways across blocks
+  (:func:`split_ranges`, :func:`chunked_splits`), sums the int32 partials
+  in a workspace and runs the epilogue in a second kernel; ``splits=``
+  gives the plain version the same partition, whose wrap-around sums equal
+  the unsplit ones.
 - ``acc_in`` (B3): this launch's canonical result is added mod p onto
   ``acc_in`` in place, and ``acc_in`` itself is returned. This is the
   port's form of the reference's ``input_output_aliases`` and its donated
@@ -86,6 +91,9 @@ __all__ = [
     "KERNEL_VARIANTS",
     "kernel_mt",
     "kernel_occupancy",
+    "split_ranges",
+    "chunked_splits",
+    "launch_splits",
 ]
 
 _W8 = 8
@@ -97,8 +105,13 @@ _BIAS = 128
 # the uint32 carry chain's bound on summed rows (see fused_share_combine_mxu8)
 _MAX_RAND_PARTICIPANTS = 65793
 
+# the kernels' K tile (rows) and ring depth (csrc/mxu8.cu: kKT, kStages)
+KT = 64
+RING_STAGES = 4
+
 # Launches of each variant of the CUDA kernel (one per call on a CUDA
-# tensor): B1 single chunk, B2 chunked, B3 accumulate.
+# tensor): B1 single chunk, B2 chunked (a memset and two kernels), B3
+# accumulate.
 mxu8_launches = 0
 mxu8_chunked_launches = 0
 mxu8_acc_launches = 0
@@ -385,14 +398,19 @@ def philox_words(seed: int, lanes: torch.Tensor, draws: torch.Tensor, n_words: i
     return torch.stack(words, dim=2).reshape(draws.shape[0], groups * 4, -1)[:, :n_words]
 
 
-def _rand_operand(plan: "Mxu8Plan", seed: int, lanes: torch.Tensor) -> torch.Tensor:
+def _rand_operand(plan: "Mxu8Plan", seed: int, lanes: torch.Tensor,
+                  draw_ranges=None) -> torch.Tensor:
     """Biased randomness operand ``[Kr, T]`` (int64 values ``b - 128``) for
     the global lane indices ``lanes``: u16-field sums of every draw's PRNG
-    words, in the ``(c, parity, w)`` row order of :func:`_big8_randsum`."""
-    draws = torch.arange(plan.rp, dtype=torch.int64, device=lanes.device)
-    words = philox_words(seed, lanes, draws, plan.words_per_p, 0)  # [rp, wpp, T]
-    accR = words.sum(dim=0) & _M32
-    accO = (words >> _W16).sum(dim=0) & _M32
+    words, in the ``(c, parity, w)`` row order of :func:`_big8_randsum`.
+    ``draw_ranges`` (default: all draws) cuts the draws into ranges whose
+    u32 sums are added with wrap-around, as B2's split blocks add theirs."""
+    accR = accO = 0
+    for j0, j1 in draw_ranges or [(0, plan.rp)]:
+        draws = torch.arange(j0, j1, dtype=torch.int64, device=lanes.device)
+        words = philox_words(seed, lanes, draws, plan.words_per_p, 0)  # [j1 - j0, wpp, T]
+        accR = (accR + (words.sum(dim=0) & _M32)) & _M32
+        accO = (accO + ((words >> _W16).sum(dim=0) & _M32)) & _M32
     # accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
     accE = (accR - (accO << _W16)) & _M32
     parts = []
@@ -400,6 +418,54 @@ def _rand_operand(plan: "Mxu8Plan", seed: int, lanes: torch.Tensor) -> torch.Ten
         for s in (accE, accO):
             parts.append(((s >> (_W8 * c)) & _MASK8) - _BIAS)
     return torch.cat(parts, dim=0)
+
+
+# ------------------------------------------------------- B2's partition
+
+
+def split_ranges(per_chunk: int, n_chunks: int, splits: int) -> list[list[tuple[int, int, int]]]:
+    """B2's partition of one lane block's work: for each split ``s`` of
+    ``splits``, its pieces ``(chunk, begin, end)`` of the flattened list of
+    ``n_chunks * per_chunk`` (chunk, item) pairs, pairs ``[s * total //
+    splits, (s + 1) * total // splits)`` cut where a chunk ends. Items are
+    K tiles of ``KT`` rows or randomness draws; ``csrc/mxu8.cu``
+    (``for_pieces``) and ``csrc/probes.cu`` (T3) cut them the same way."""
+    if splits < 1:
+        raise ValueError("splits must be >= 1")
+    total = per_chunk * n_chunks
+    out = []
+    for s in range(splits):
+        i, end, pieces = total * s // splits, total * (s + 1) // splits, []
+        while i < end:
+            c, b = divmod(i, per_chunk)
+            e = min(per_chunk, b + end - i)
+            pieces.append((c, b, e))
+            i += e - b
+        out.append(pieces)
+    return out
+
+
+def _pieces_by_chunk(per_chunk: int, n_chunks: int, splits: int | None):
+    """``[chunk][(begin, end), ...]``: every split's pieces of each chunk
+    (one whole range per chunk when ``splits`` is None)."""
+    if splits is None:
+        return [[(0, per_chunk)] for _ in range(n_chunks)]
+    out = [[] for _ in range(n_chunks)]
+    for pieces in split_ranges(per_chunk, n_chunks, splits):
+        for c, b, e in pieces:
+            out[c].append((b, e))
+    return out
+
+
+def chunked_splits(lane_blocks: int, tiles_per_chunk: int, n_chunks: int, sms: int,
+                   blocks_per_sm: int) -> int:
+    """The split count ``S`` of a B2 launch: as many splits as put
+    ``lane_blocks * S`` blocks on the card's ``sms * blocks_per_sm`` slots
+    in one wave (a second, partial wave would double the time of its
+    blocks' lane blocks), at least 1, and no more than leave each split a
+    ring's worth (``RING_STAGES``) of K tiles."""
+    slots = sms * max(1, blocks_per_sm)
+    return max(1, min(slots // max(1, lane_blocks), tiles_per_chunk * n_chunks // RING_STAGES))
 
 
 # ------------------------------------------------------------------- plan
@@ -642,13 +708,18 @@ def _fold8(plan: Mxu8Plan, limbs):
     return res
 
 
-def _plain_block(plan: Mxu8Plan, sec: torch.Tensor, seed: int, lane0: int) -> torch.Tensor:
+def _plain_block(plan: Mxu8Plan, sec: torch.Tensor, seed: int, lane0: int, row_ranges,
+                 draw_ranges) -> torch.Tensor:
     mxu8 = plan.mxu8
     n, L8 = plan.n, mxu8.L8
-    acc = _dot(plan.bigs, sec)  # [n_pad, T]
+    # the int32 partials of the row ranges, added with wrap-around
+    acc = 0
+    for r0, r1 in row_ranges:
+        acc = (acc + (_dot(plan.bigs[:, r0:r1], sec[r0:r1]) & _M32)) & _M32  # [n_pad, T]
     if plan.Kr:
         lanes = torch.arange(lane0, lane0 + sec.shape[1], dtype=torch.int64, device=sec.device)
-        acc = acc + _dot(plan.bigr[:, : plan.Kr], _rand_operand(plan, seed, lanes))
+        rand = _rand_operand(plan, seed, lanes, draw_ranges)
+        acc = (acc + _dot(plan.bigr[:, : plan.Kr], rand)) & _M32
     s128 = (acc[n * L8] * _BIAS) & _M32  # ones column
     limbs = _true_chain(acc[: n * L8].reshape(n, L8, -1), plan.c1, s128, plan.n_res1)
     if plan.n2:
@@ -662,17 +733,20 @@ def _plain_block(plan: Mxu8Plan, sec: torch.Tensor, seed: int, lane0: int) -> to
     return torch.cat(_fold8(plan, limbs), dim=0).to(torch.int32)
 
 
-def _plain_chunk(plan: Mxu8Plan, sec: torch.Tensor, seed: int) -> torch.Tensor:
-    """One chunk's pipeline. Lanes are independent, so they run in blocks
-    that bound the float64 operand and the Philox intermediates to about
-    2^27 elements each."""
+def _plain_chunk(plan: Mxu8Plan, sec: torch.Tensor, seed: int, row_ranges=None,
+                 draw_ranges=None) -> torch.Tensor:
+    """One chunk's pipeline, its operand rows and draws summed over
+    ``row_ranges`` and ``draw_ranges`` (default: one range each). Lanes are
+    independent, so they run in blocks that bound the float64 operand and
+    the Philox intermediates to about 2^27 elements each."""
     nbp = sec.shape[1]
+    row_ranges = row_ranges or [(0, plan.rows)]
     groups = -(-plan.words_per_p // 4) if plan.rp else 0
     block = max(1, min(nbp, (1 << 27) // max(plan.rows, 4 * plan.rp * groups, 1)))
     out = torch.empty((plan.mxu8.ctx.L * plan.n_out, nbp), dtype=torch.int32, device=sec.device)
     for l0 in range(0, nbp, block):
         l1 = min(nbp, l0 + block)
-        out[:, l0:l1] = _plain_block(plan, sec[:, l0:l1], seed, l0)
+        out[:, l0:l1] = _plain_block(plan, sec[:, l0:l1], seed, l0, row_ranges, draw_ranges)
     return out
 
 
@@ -687,18 +761,25 @@ def _add_mod_lm(plan: Mxu8Plan, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 
 def _fused_share_combine_mxu8_plain(
-    plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int = 0, acc_in=None
+    plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int = 0, acc_in=None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """The fused function in plain int64 tensor code (any device): the
     CUDA kernel's arithmetic, step for step, with the same Philox mapping.
     Chunk ``c`` of ``plan.n_chunks`` draws with seed ``seed + c *
     seed_stride``; the chunks' canonical results are added mod p. With
     ``acc_in`` the result is added onto ``acc_in`` in place, and ``acc_in``
-    is returned."""
+    is returned. ``splits``: B2's partition into that many splits of each
+    chunk's K tiles and draws (:func:`split_ranges`), each piece's partial
+    sums added with wrap-around; the result does not depend on it."""
     rows = plan.rows
+    tiles = _pieces_by_chunk(-(-rows // KT), plan.n_chunks, splits)
+    draws = _pieces_by_chunk(plan.rp, plan.n_chunks, splits)
     out = None
     for c in range(plan.n_chunks):
-        res = _plain_chunk(plan, sec[c * rows : (c + 1) * rows], (seed + c * seed_stride) & _M32)
+        row_ranges = [(b * KT, min(e * KT, rows)) for b, e in tiles[c]]
+        res = _plain_chunk(plan, sec[c * rows : (c + 1) * rows], (seed + c * seed_stride) & _M32,
+                           row_ranges, draws[c])
         out = res if out is None else _add_mod_lm(plan, out, res)
     if acc_in is None:
         return out
@@ -739,12 +820,19 @@ def kernel_mt(plan: Mxu8Plan) -> int:
     return -(-(plan.n * plan.mxu8.L8) // 16)
 
 
+def _ws_rows(plan: Mxu8Plan) -> int:
+    """Rows of one chunk's slab of B2's workspace: the stage-1 rows and the
+    ones row, then the draws' u32 sums accR and accO of each PRNG word."""
+    return plan.n * plan.mxu8.L8 + 1 + (2 * plan.words_per_p if plan.Kr else 0)
+
+
 def _launch_mxu8_kernel(
-    plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int, acc_in
+    plan: Mxu8Plan, sec: torch.Tensor, seed: int, seed_stride: int, acc_in, splits
 ) -> torch.Tensor:
-    """One launch of ``csrc/mxu8.cu`` on the current stream: the chunked
-    variant (B2) when the plan has several chunks, the accumulate variant
-    (B3) with ``acc_in``, else the single-chunk kernel (B1)."""
+    """One call of ``csrc/mxu8.cu`` on the current stream: the chunked
+    variant (B2: a memset, the split kernel and the epilogue kernel) when
+    the plan has several chunks, the accumulate variant (B3) with
+    ``acc_in``, else the single-chunk kernel (B1)."""
     global mxu8_launches, mxu8_chunked_launches, mxu8_acc_launches
     from sda_tpu_torch.ops.cuda_build import load_kernel_library
 
@@ -757,9 +845,6 @@ def _launch_mxu8_kernel(
         raise ValueError("n * L8 + 1 > 192 output rows: not supported by the kernel")
     variant = _variant(plan, acc_in is not None)
     lib = load_kernel_library(*KERNEL_VARIANTS[variant])
-    fn = lib.sda_mxu8_fused
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     nbp = sec.shape[1]
     params = _kernel_params(plan, nbp, seed, seed_stride)
     if acc_in is None:
@@ -768,11 +853,23 @@ def _launch_mxu8_kernel(
         out = acc_in  # B3 reads the running sums from out and adds onto them
     with torch.cuda.device(sec.device):
         stream = torch.cuda.current_stream(sec.device).cuda_stream
-        err = fn(
-            sec.data_ptr(), plan.bigs.data_ptr(), plan.bigr.data_ptr(),
-            plan.big2.data_ptr(), plan.tables.data_ptr(), out.data_ptr(),
-            params.ctypes.data, len(params), stream,
-        )
+        args = [sec.data_ptr(), plan.bigs.data_ptr(), plan.bigr.data_ptr(),
+                plan.big2.data_ptr(), plan.tables.data_ptr()]
+        if variant == "mxu8_chunked":
+            if splits is None:
+                splits = launch_splits(plan, nbp, sec.device)
+            ws = torch.empty(plan.n_chunks * _ws_rows(plan) * (-(-nbp // 4) * 4),
+                             dtype=torch.int32, device=sec.device)
+            fn = lib.sda_mxu8_chunked
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*args, ws.data_ptr(), out.data_ptr(), params.ctypes.data, len(params),
+                     splits, stream)
+        else:
+            fn = lib.sda_mxu8_fused
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*args, out.data_ptr(), params.ctypes.data, len(params), stream)
     if err != 0:
         raise RuntimeError(f"{variant} kernel launch failed: cudaError {err}")
     if variant == "mxu8_chunked":
@@ -784,37 +881,64 @@ def _launch_mxu8_kernel(
     return out
 
 
-def kernel_occupancy(plan: Mxu8Plan, nbp: int, acc: bool = False) -> tuple[int, int]:
+def kernel_occupancy(plan: Mxu8Plan, nbp: int, acc: bool = False,
+                     epilogue: bool = False) -> tuple[int, int]:
     """(dynamic shared memory per block in bytes, resident blocks per SM)
     of the kernel launch a CUDA call of ``run_mxu8`` with this plan makes at
-    ``nbp`` lanes (``acc``: with ``acc_in``), from the CUDA runtime's
-    occupancy calculator on the current device. Launches nothing."""
+    ``nbp`` lanes (``acc``: with ``acc_in``; a chunked plan: its split
+    kernel, or with ``epilogue`` its epilogue kernel), from the CUDA
+    runtime's occupancy calculator on the current device. Launches
+    nothing."""
     from sda_tpu_torch.ops.cuda_build import load_kernel_library
 
     variant = _variant(plan, acc)
     fn = load_kernel_library(*KERNEL_VARIANTS[variant]).sda_mxu8_occupancy
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     params = _kernel_params(plan, nbp, 0, 0)
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(params.ctypes.data, len(params), ctypes.byref(smem), ctypes.byref(blocks))
+    err = fn(params.ctypes.data, len(params), int(epilogue), ctypes.byref(smem),
+             ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"{variant} occupancy query failed: cudaError {err}")
     return smem.value, blocks.value
 
 
+_splits_cache: dict[tuple, int] = {}
+
+
+def launch_splits(plan: Mxu8Plan, nbp: int, device) -> int:
+    """The split count a CUDA call of ``run_mxu8`` with this chunked plan
+    launches at ``nbp`` lanes on ``device``: :func:`chunked_splits` of its
+    lane blocks and K tiles, the card's SM count and the split kernel's
+    blocks per SM (:func:`kernel_occupancy`, which depends on the plan
+    only through its ``n * L8`` stage-1 rows)."""
+    device = torch.device(device)
+    key = (nbp, plan.rows, plan.n_chunks, plan.n * plan.mxu8.L8, device.index)
+    got = _splits_cache.get(key)
+    if got is None:
+        with torch.cuda.device(device):
+            _, blocks = kernel_occupancy(plan, nbp)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+        got = chunked_splits(-(-nbp // 128), -(-plan.rows // KT), plan.n_chunks, sms, blocks)
+        _splits_cache[key] = got
+    return got
+
+
 def run_mxu8(
     plan: Mxu8Plan, sec_planar: torch.Tensor, seed: int = 0, lanes: int | None = None,
-    acc_in=None,
+    acc_in=None, splits: int | None = None,
 ) -> torch.Tensor:
-    """Run a planned fused call: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.
+    """Run a planned fused call: the CUDA kernels for a CUDA tensor, the
+    plain version for a CPU tensor.
 
     ``sec_planar`` holds ``plan.n_chunks`` chunks of ``plan.rows`` rows. A
     chunked plan needs ``lanes``: chunk ``c`` draws with seed ``seed + c *
     (NBP // lanes)`` (module docstring). ``acc_in`` (single-chunk plans
     only): ``[L * n_out, NBP]`` int32 canonical running sums, updated in
-    place and returned.
+    place and returned. ``splits`` (chunked plans only): B2's split count,
+    the card's own choice (:func:`launch_splits`) by default; the plain
+    version sums over the same partition when it is given.
     """
     all_rows, nbp = sec_planar.shape
     if all_rows != plan.rows * plan.n_chunks:
@@ -823,6 +947,8 @@ def run_mxu8(
         raise ValueError(f"NBP={nbp} must be a multiple of lanes={lanes}")
     if plan.n_chunks > 1 and lanes is None:
         raise ValueError("a chunked plan needs lanes (the per-chunk seed stride is NBP // lanes)")
+    if splits is not None and (plan.n_chunks == 1 or splits < 1):
+        raise ValueError("splits (>= 1) applies to chunked plans only")
     seed_stride = nbp // lanes if plan.n_chunks > 1 else 0
     if acc_in is not None:
         if plan.n_chunks != 1:
@@ -834,9 +960,10 @@ def run_mxu8(
             )
     seed = int(seed)
     if sec_planar.device.type == "cuda":
-        return _launch_mxu8_kernel(plan, sec_planar, seed, seed_stride, acc_in)
+        return _launch_mxu8_kernel(plan, sec_planar, seed, seed_stride, acc_in, splits)
     if sec_planar.device.type == "cpu":
-        return _fused_share_combine_mxu8_plain(plan, sec_planar, seed, seed_stride, acc_in)
+        return _fused_share_combine_mxu8_plain(plan, sec_planar, seed, seed_stride, acc_in,
+                                               splits)
     raise ValueError(f"unsupported device {sec_planar.device}")
 
 
@@ -867,7 +994,7 @@ def fused_share_combine_mxu8(
     ``p_count``). ``pg`` is kept for the reference's signature and guard.
 
     ``n_chunks > 1``: ``sec_planar`` stacks that many ``p_count``-participant
-    chunks along its rows and the whole job runs as ONE launch (B2); each
+    chunks along its rows and the whole job runs as ONE call (B2); each
     chunk stays inside the carry-chain bound, and with
     ``reconstruct_matrix`` each chunk is reconstructed before the sum (the
     reconstruction is linear). Total participants: ``n_chunks * p_count``.

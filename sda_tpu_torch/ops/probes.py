@@ -10,8 +10,11 @@ The probes are hand-written CUDA kernels (``csrc/probes.cu``):
   single job; **T2** (:func:`probe_t2`): the same at the 512-job lane batch.
   Both launch B1's grid, one 256-thread block per 128 lanes, and each block
   reads the column slice of every row that B1 stages.
-- **T3** (:func:`probe_t3`): the floor of one B2 launch: the same tile, the
-  block looping over the stacked chunks, the output tile written once.
+- **T3** (:func:`probe_t3`): the floor of one B2 call, through B2's split
+  grid: ``NBP / 128`` lane blocks times ``splits`` blocks, block ``(b, s)``
+  reading the 64-row tiles of split ``s`` of B2's partition
+  (:func:`~sda_tpu_torch.ops.mxu8.split_ranges`) in lane block ``b``'s
+  column slice; split 0 writes the output tile once.
 - **T1'** (:func:`probe_t1_bare`): the bare launch floor, one block, a 1 KB
   input and a 4 KB output.
 
@@ -31,6 +34,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from sda_tpu_torch.ops.mxu8 import KT, split_ranges
 
 __all__ = [
     "probe_t1",
@@ -76,11 +81,24 @@ def xor_words(x: torch.Tensor) -> int:
     return int(_xor_reduce(words, 0)) & _M32
 
 
-def _sink_plain(x: torch.Tensor) -> torch.Tensor:
-    """Per 128-lane block, the XOR of the block's column slice over every row."""
+def _sink_plain(x: torch.Tensor, n_chunks: int = 1, splits: int | None = None) -> torch.Tensor:
+    """Per 128-lane block, the XOR of the block's column slice over every
+    row; with ``splits`` (T3), per block ``(split s, lane block b)`` in that
+    order, over the rows of split ``s``'s pieces of B2's partition."""
     rows, nbp = x.shape
     words = x.contiguous().view(torch.int32).view(rows, nbp // _T, _T // 4)
-    return _xor_reduce(_xor_reduce(words, 2), 0)
+    if splits is None:
+        return _xor_reduce(_xor_reduce(words, 2), 0)
+    rows_c = rows // n_chunks
+    zero = torch.zeros(nbp // _T, dtype=torch.int32, device=x.device)
+    sinks = []
+    for pieces in split_ranges(-(-rows_c // KT), n_chunks, splits):
+        acc = zero
+        for c, b, e in pieces:
+            r0, r1 = c * rows_c + b * KT, c * rows_c + min(e * KT, rows_c)
+            acc = acc ^ _xor_reduce(_xor_reduce(words[r0:r1], 2), 0)
+        sinks.append(acc)
+    return torch.cat(sinks)
 
 
 def _check_lanes(x: torch.Tensor, n_chunks: int):
@@ -99,7 +117,7 @@ def _lib():
     lib = load_kernel_library(*KERNEL_VARIANTS["probes"])
     lib.sda_probe_lanes.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.sda_probe_lanes.restype = ctypes.c_int
     lib.sda_probe_bare.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
@@ -107,25 +125,27 @@ def _lib():
     return lib
 
 
-def _lanes(x: torch.Tensor, out_rows: int, seed: int, n_chunks: int, name: str):
-    """T1/T2/T3: ``(out [out_rows, NBP] int32 filled with seed, sink
-    [NBP / 128] int32)``. T3 launches the chunk-loop kernel whatever
-    ``n_chunks`` is; T1 and T2 the single-pass one."""
+def _lanes(x: torch.Tensor, out_rows: int, seed: int, n_chunks: int, splits: int | None,
+           name: str):
+    """T1/T2 (``splits`` None) and T3: ``(out [out_rows, NBP] int32 filled
+    with seed, sink [NBP / 128] int32, T3: [splits * NBP / 128])``."""
     _check_lanes(x, n_chunks)
+    if splits is not None and splits < 1:
+        raise ValueError("splits must be >= 1")
     rows, nbp = x.shape
     out = torch.empty((out_rows, nbp), dtype=torch.int32, device=x.device)
     if x.device.type == "cpu":
         out.fill_(_i32(seed))
-        return out, _sink_plain(x)
+        return out, _sink_plain(x, n_chunks, splits)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    sink = torch.empty(nbp // _T, dtype=torch.int32, device=x.device)
+    sink = torch.empty((splits or 1) * (nbp // _T), dtype=torch.int32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sda_probe_lanes(x.data_ptr(), rows // n_chunks, n_chunks, nbp, out.data_ptr(),
-                                  out_rows, seed & _M32, sink.data_ptr(),
-                                  int(name == "probe_t3"), stream)
+                                  out_rows, seed & _M32, sink.data_ptr(), int(splits is not None),
+                                  splits or 1, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     probe_launches[name] += 1
@@ -134,18 +154,20 @@ def _lanes(x: torch.Tensor, out_rows: int, seed: int, n_chunks: int, name: str):
 
 def probe_t1(x: torch.Tensor, out_rows: int, seed: int):
     """T1: B1's grid over one job's ``[rows, NBP]`` planar operand."""
-    return _lanes(x, out_rows, seed, 1, "probe_t1")
+    return _lanes(x, out_rows, seed, 1, None, "probe_t1")
 
 
 def probe_t2(x: torch.Tensor, out_rows: int, seed: int):
     """T2: B1's grid over a lane batch's ``[rows, NBP]`` planar operand."""
-    return _lanes(x, out_rows, seed, 1, "probe_t2")
+    return _lanes(x, out_rows, seed, 1, None, "probe_t2")
 
 
-def probe_t3(x: torch.Tensor, out_rows: int, n_chunks: int, seed: int):
-    """T3: B2's grid over ``n_chunks`` stacked chunks, each block looping
-    over the chunks and writing its output tile once."""
-    return _lanes(x, out_rows, seed, n_chunks, "probe_t3")
+def probe_t3(x: torch.Tensor, out_rows: int, n_chunks: int, seed: int, splits: int):
+    """T3: B2's split grid over ``n_chunks`` stacked chunks, ``splits`` the
+    split count of the B2 call it stands for
+    (:func:`~sda_tpu_torch.ops.mxu8.launch_splits`); split 0 of each lane
+    block writes its output tile once."""
+    return _lanes(x, out_rows, seed, n_chunks, splits, "probe_t3")
 
 
 def probe_t1_bare(x: torch.Tensor, out_words: int, seed: int):

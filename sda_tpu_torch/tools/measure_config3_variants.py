@@ -9,17 +9,19 @@ run as ``n_chunks`` stacked chunks in ONE launch (B2; B1 when
 ``n_chunks`` is 1). The reference swept ``(n_chunks, lanes)`` because
 ``lanes`` was the TPU's block width. The port's B2 launcher uses ``lanes``
 only for NBP's padding (NBP = NB rounded up to a multiple of ``lanes``) and
-the per-chunk seed stride (NBP // lanes): its grid is one 256-thread block
-per 128 lanes whatever ``lanes`` is. So the sweep is over what changes the
-launch, ``(n_chunks, NBP)``: the reference's variants plus every
-``n_chunks`` at the least padding (``lanes`` 128), one row per distinct
-launch. At the best row, the controls are T3
-(:func:`~sda_tpu_torch.ops.probes.probe_t3`: B2's grid and chunk loop,
-every byte read, the output written once), the combined-draw mode and the
-launch without fused reconstruction, and the same bytes through PyTorch's
-own kernels. T3 is also timed at the best row of more than one chunk, so
-its chunk loop runs more than once whichever row is best. Every row's
-reveal is checked, and T3's sink XOR against the input's. Writes
+the per-chunk seed stride (NBP // lanes): its grid is NBP / 128 lane blocks
+times the split count S (:func:`~sda_tpu_torch.ops.mxu8.launch_splits`)
+whatever ``lanes`` is. So the sweep is over what changes the launch,
+``(n_chunks, NBP)``: the reference's variants plus every ``n_chunks`` at
+the least padding (``lanes`` 128), one row per distinct launch, each with
+its S and its grid (one chunk runs B1: S = 1). At the best row, the
+controls are T3 (:func:`~sda_tpu_torch.ops.probes.probe_t3`: B2's split
+grid at the row's S, every byte read, the output written once), the
+combined-draw mode and the launch without fused reconstruction, and the
+same bytes through PyTorch's own kernels. T3 is also timed at the best
+row of more than one chunk, so it covers several chunks whichever row is
+best. Every row's reveal is checked, and T3's sink XOR against the
+input's. Writes
 ``build/measurements/CONFIG3_SWEEP.json``.
 """
 
@@ -32,7 +34,7 @@ import torch
 
 from sda_tpu_torch.engine import resolve_device
 from sda_tpu_torch.models import FederatedAggregation
-from sda_tpu_torch.ops.mxu8 import mxu8_plan, run_mxu8
+from sda_tpu_torch.ops.mxu8 import launch_splits, mxu8_plan, run_mxu8
 from sda_tpu_torch.ops.probes import library_probe, probe_bytes, probe_t3
 from sda_tpu_torch.tools._common import (
     bound,
@@ -58,6 +60,14 @@ SAMPLES, ITERS = 3, 3
 
 def _ms(t, key):
     return None if t is None else getattr(t, key)
+
+
+def _splits(plan, nbp: int, device) -> int:
+    """The split count of the launch: B2's on the card; 1 for one chunk (B1
+    does not split) and on the CPU (the plain version has no grid)."""
+    if plan.n_chunks == 1 or device.type != "cuda":
+        return 1
+    return launch_splits(plan, nbp, device)
 
 
 def measure(dimension: int = 10_002, total: int = 1024, variants=REFERENCE_VARIANTS,
@@ -90,9 +100,10 @@ def measure(dimension: int = 10_002, total: int = 1024, variants=REFERENCE_VARIA
             sec8_all, n_chunks, p_chunk, seed=1 + i, lanes=lanes), device, SAMPLES, ITERS)
         plan = engine._plan("share", rows, p_chunk, device, n_chunks)
         bound_ms, by = bound([mxu8_cost(plan, nbp)])
+        splits = _splits(plan, nbp, device)
         rows_out.append({
-            "n_chunks": n_chunks, "lanes": lanes, "nbp": nbp,
-            "grid_blocks": nbp // 128, "grid_steps": (nbp // 128) * n_chunks,
+            "n_chunks": n_chunks, "lanes": lanes, "nbp": nbp, "splits": splits,
+            "lane_blocks": nbp // 128, "grid_blocks": nbp // 128 * splits,
             "ms": _ms(t, "median_ms"), "ms_min": _ms(t, "min_ms"), "ms_max": _ms(t, "max_ms"),
             "bound_ms": bound_ms, "bound_by": by,
             "fraction_of_sol": None if t is None else bound_ms / t.median_ms,
@@ -109,21 +120,23 @@ def measure(dimension: int = 10_002, total: int = 1024, variants=REFERENCE_VARIA
     out_rows = L * k
 
     def t3_floor(row):
-        """T3 at ``row``'s launch: (its input, timing, bytes); sink checked."""
-        n, nbp_ = row["n_chunks"], row["nbp"]
+        """T3 at ``row``'s launch and split count: (its input, timing,
+        bytes); sink checked."""
+        n, nbp_, splits = row["n_chunks"], row["nbp"], row["splits"]
         sec8 = stacked(n, total // n * k * L8, nbp_)
-        first = probe_t3(sec8, out_rows, n, 7)
+        first = probe_t3(sec8, out_rows, n, 7, splits)
         check_sink(first, sec8)
-        return sec8, timed(lambda i: probe_t3(sec8, out_rows, n, i), device, SAMPLES,
+        return sec8, timed(lambda i: probe_t3(sec8, out_rows, n, i, splits), device, SAMPLES,
                            ITERS), probe_bytes(sec8, *first)
 
-    # T3's chunk loop at the best launch of more than one chunk
+    # T3 at the best launch of more than one chunk
     chunked_rows = [row for row in rows_out if row["n_chunks"] > 1]
     chunk_loop = None
     if chunked_rows:
         row = best_of(chunked_rows)
         _, t, nbytes = t3_floor(row)
-        chunk_loop = {"n_chunks": row["n_chunks"], "nbp": row["nbp"], "real_ms": row["ms"],
+        chunk_loop = {"n_chunks": row["n_chunks"], "nbp": row["nbp"], "splits": row["splits"],
+                      "grid_blocks": row["grid_blocks"], "real_ms": row["ms"],
                       "noop_ms": _ms(t, "median_ms"), "noop_bytes": nbytes,
                       "noop_bound_ms": nbytes / PEAK_BYTES * 1e3,
                       "copy_floor_tb_s": None if t is None else nbytes / median_s(t) / 1e12}
@@ -157,8 +170,9 @@ def measure(dimension: int = 10_002, total: int = 1024, variants=REFERENCE_VARIA
         "noop_at_best_chunked": chunk_loop,
         "lanes_note": (
             "the port's B2 launcher uses lanes only for NBP's padding and the per-chunk seed "
-            "stride (NBP // lanes); its grid is one 256-thread block per 128 lanes, each block "
-            "looping over the chunks, so the rows sweep (n_chunks, NBP), one per distinct launch"
+            "stride (NBP // lanes); its grid is NBP / 128 lane blocks x the split count S, each "
+            "block summing its range of (chunk, K tile) and of (chunk, draw), so the rows sweep "
+            "(n_chunks, NBP), one per distinct launch"
         ),
     }
 

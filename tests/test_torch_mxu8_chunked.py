@@ -65,16 +65,26 @@ def _same(want, got):
     return np.array_equal(np.asarray(want).astype(np.int64), got.to(torch.int64).numpy())
 
 
-@pytest.mark.parametrize("name", ENGINES)
-@pytest.mark.parametrize("fused_rec", [False, True], ids=["combined", "reconstructed"])
-def test_plain_chunked_matches_reference(name, fused_rec):
-    ref, eng = _pair(name)
+@functools.lru_cache(maxsize=None)
+def _chunked_case(name, fused_rec):
+    """A 3-chunk caller-randomness case: (port operand, the reference's
+    interpret-mode chunked kernel's output)."""
+    ref, _ = _pair(name)
     n_chunks, P = 3, 2
     e8, t8, _ = _stacked_ext(name, n_chunks, P, 5 + fused_rec)
     want = ref_m8.fused_share_combine_mxu8(
         ref.mxu8, ref.spec.share_matrix, e8, P, 3, 4, lanes=LANES, n_chunks=n_chunks,
         reconstruct_matrix=ref.spec.reconstruct_matrix if fused_rec else None, interpret=True,
     )
+    return t8, np.asarray(want)
+
+
+@pytest.mark.parametrize("name", ENGINES)
+@pytest.mark.parametrize("fused_rec", [False, True], ids=["combined", "reconstructed"])
+def test_plain_chunked_matches_reference(name, fused_rec):
+    _, eng = _pair(name)
+    n_chunks, P = 3, 2
+    t8, want = _chunked_case(name, fused_rec)
     got = t_m8.fused_share_combine_mxu8(
         eng.mxu8, eng.spec.share_matrix, t8, P, 3, 4, lanes=LANES, n_chunks=n_chunks,
         reconstruct_matrix=eng.spec.reconstruct_matrix if fused_rec else None,
@@ -237,3 +247,139 @@ def test_chunked_guards():
         eng.concat_jobs_lanes([ok, ok[:, :4]])
     with pytest.raises(ValueError, match="divide evenly into jobs"):
         eng.aggregate_mxu8_kernel_jobs(torch.cat([ok, ok], dim=1), 0, 2, 3, lanes=8)
+
+
+# ------------------------------------------------- B2's split K (partition)
+
+
+def test_chunked_splits_fill_the_card_in_one_wave():
+    """Config 3 (NBP 3,584: 28 lane blocks; 2 chunks of 384 K tiles) on 132
+    SMs at 2 blocks per SM: S = 9, 252 blocks, as many as fit the 264
+    slots in one wave and more than the SM count. The headline's 2,608
+    lane blocks fill the card alone: S = 1."""
+    s = t_m8.chunked_splits(28, 384, 2, 132, 2)
+    assert s == 9
+    assert 28 * s <= 132 * 2 < 28 * (s + 1) and 28 * s >= 132
+    assert t_m8.chunked_splits(2608, 288, 1, 132, 2) == 1
+    # no split shorter than the ring: 3 tiles in all leave one split
+    assert t_m8.chunked_splits(1, 1, 3, 132, 2) == 1
+    assert t_m8.chunked_splits(1, 4, 3, 132, 2) == 3
+    # a card that takes one block per SM halves the slots
+    assert t_m8.chunked_splits(28, 384, 2, 132, 1) == 4
+
+
+@pytest.mark.parametrize("per_chunk,n_chunks", [(7, 3), (384, 2), (5, 1), (1, 3), (13, 4)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 60])
+def test_split_ranges_cover_every_item_once(per_chunk, n_chunks, splits):
+    ranges = t_m8.split_ranges(per_chunk, n_chunks, splits)
+    assert len(ranges) == splits
+    seen = [(c, i) for pieces in ranges for c, b, e in pieces for i in range(b, e)]
+    # every (chunk, item) exactly once, in the flattened order
+    assert seen == [(c, i) for c in range(n_chunks) for i in range(per_chunk)]
+    total = per_chunk * n_chunks
+    for pieces in ranges:
+        assert all(0 <= b < e <= per_chunk for _, b, e in pieces)
+        # a piece per chunk the range touches, cut at chunk ends
+        assert len({c for c, _, _ in pieces}) == len(pieces)
+        size = sum(e - b for _, b, e in pieces)
+        assert total // splits <= size <= -(-total // splits)
+    with pytest.raises(ValueError, match="splits must be >= 1"):
+        t_m8.split_ranges(4, 2, 0)
+
+
+SPLITS = [1, 2, 3, 7, 50]
+
+
+@pytest.mark.parametrize("name", ENGINES)
+@pytest.mark.parametrize("fused_rec", [False, True], ids=["combined", "reconstructed"])
+def test_plain_chunked_splits_match_reference(name, fused_rec):
+    """B2's partition in the plain version: the int32 partials of every
+    split's (chunk, tile range) pieces, added with wrap-around, equal the
+    unsplit plain version and the reference's interpret-mode chunked
+    kernel, for split counts that divide the 3 x ceil(K / 64) tiles
+    unevenly, cross chunk ends, and exceed the tiles (50)."""
+    _, eng = _pair(name)
+    n_chunks, P = 3, 2
+    t8, want = _chunked_case(name, fused_rec)
+    rec = eng.spec.reconstruct_matrix if fused_rec else None
+    plan = t_m8.mxu8_plan(eng.mxu8, eng.spec.share_matrix, t8.shape[0] // n_chunks, P, 3, 4,
+                          reconstruct_matrix=rec, n_chunks=n_chunks)
+    whole = t_m8.run_mxu8(plan, t8, 0, lanes=LANES)
+    assert _same(want, whole)
+    for splits in SPLITS:
+        got = t_m8.run_mxu8(plan, t8, 0, lanes=LANES, splits=splits)
+        assert torch.equal(got, whole), splits
+
+
+@pytest.mark.parametrize("name", ["p433", "p127special"])
+def test_prng_chunked_splits_equal_streaming(name):
+    """PRNG mode with B2's partition: each split sums its share of the
+    (chunk, draw) pairs (6 draws here, so 7 and 50 splits leave some
+    without any), and the u32 sums meet before the byte extraction; the
+    result still equals the streaming loop at the same seed."""
+    _, eng = _pair(name)
+    n_chunks, P, seed = 3, 2, 43
+    rng = np.random.default_rng(22)
+    secrets = eng.encode_secrets(
+        rng.integers(0, min(eng.ctx.p, 1 << 62), size=(n_chunks * P, eng.dimension))
+    )
+    sec8 = eng.planar8_secrets(secrets, LANES)
+    rows = sec8.shape[0] // n_chunks
+    M = eng.spec.share_matrix
+    grid_t = sec8.shape[1] // LANES
+    acc = t_m8.fused_share_combine_mxu8(eng.mxu8, M, sec8[:rows], P, 3, 4, seed=seed, lanes=LANES)
+    for c in range(1, n_chunks):
+        t_m8.fused_share_combine_mxu8(eng.mxu8, M, sec8[c * rows : (c + 1) * rows], P, 3, 4,
+                                      seed=seed + c * grid_t, lanes=LANES, acc_in=acc)
+    chunked = t_m8.mxu8_plan(eng.mxu8, M, rows, P, 3, 4, n_chunks=n_chunks)
+    for splits in SPLITS:
+        got = t_m8.run_mxu8(chunked, sec8, seed, lanes=LANES, splits=splits)
+        assert torch.equal(got, acc), splits
+    plan = t_m8.mxu8_plan(eng.mxu8, M, rows, P, 3, 4, n_chunks=n_chunks,
+                          reconstruct_matrix=eng.spec.reconstruct_matrix)
+    out = t_m8.run_mxu8(plan, sec8, seed, lanes=LANES, splits=7)
+    assert torch.equal(t_m8.batched_from_planar_lm(out, eng.nb, 3).to(torch.int64),
+                       eng.ctx.sum_mod(secrets, axis=0))
+
+
+
+@pytest.mark.parametrize("name", ["p433", "p127special"])
+def test_plain_chunked_reconstructs_more_outputs_than_clerks(name):
+    """A reconstruction matrix with more columns than clerks (11 from 8),
+    which the card's chunked kernel takes in passes of n outputs: the plain
+    version, whole and split, equals the chunked combine without
+    reconstruction followed by that matrix mod p on the host."""
+    from sda_tpu_torch.ops.limbs import from_limbs
+
+    _, eng = _pair(name)
+    n_chunks, P, n2 = 3, 2, 11
+    t8 = _chunked_case(name, False)[0]
+    p, n, L = eng.ctx.p, eng.spec.share_count, eng.ctx.L
+    rng = np.random.default_rng(31)
+    rec = np.array([[int(v) % p for v in row] for row in rng.integers(0, 1 << 62, size=(n, n2))],
+                   dtype=object)
+    args = (eng.mxu8, eng.spec.share_matrix, t8.shape[0] // n_chunks, P, 3, 4)
+    combined = t_m8.run_mxu8(t_m8.mxu8_plan(*args, n_chunks=n_chunks), t8, 0, lanes=LANES)
+    plan = t_m8.mxu8_plan(*args, reconstruct_matrix=rec, n_chunks=n_chunks)
+
+    def values(out, n_out):  # [L * n_out, NBP] limb-major -> [n_out, NBP] ints
+        return from_limbs(out.to(torch.int64).reshape(L, n_out, -1).permute(1, 2, 0))
+
+    v = values(combined, n)
+    want = np.array([[sum(int(v[i, b]) * int(rec[i, j]) for i in range(n)) % p
+                      for b in range(v.shape[1])] for j in range(n2)], dtype=object)
+    for splits in (None, 2):
+        got = values(t_m8.run_mxu8(plan, t8, 0, lanes=LANES, splits=splits), n2)
+        assert np.array_equal(got, want), splits
+
+
+def test_splits_guards():
+    _, eng = _pair("p62")
+    M = eng.spec.share_matrix
+    ok = torch.zeros((2 * 3 * 8, 8), dtype=torch.int8)
+    single = t_m8.mxu8_plan(eng.mxu8, M, 48, 2, 3, 4)
+    with pytest.raises(ValueError, match="chunked plans only"):
+        t_m8.run_mxu8(single, ok, 0, lanes=8, splits=2)
+    chunked = t_m8.mxu8_plan(eng.mxu8, M, 48, 2, 3, 4, n_chunks=2)
+    with pytest.raises(ValueError, match="chunked plans only"):
+        t_m8.run_mxu8(chunked, torch.cat([ok, ok]), 0, lanes=8, splits=0)

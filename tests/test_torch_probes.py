@@ -19,6 +19,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from sda_tpu_torch.ops import probes
+from sda_tpu_torch.ops.mxu8 import split_ranges
 from sda_tpu_torch.tools import _common
 from sda_tpu_torch.tools import measure_combine_crossover as crossover
 from sda_tpu_torch.tools import measure_config3_variants as config3
@@ -106,9 +107,30 @@ def test_t3_matches_the_config3_tool_kernel(n_chunks):
     x = _planar(n_chunks * rows, nbp, 4)
     want = _reference(x, (nbp // lanes, n_chunks), (rows, lanes), lambda t, c: (c, t),
                       (out_rows, nbp), (out_rows, lanes), lambda t, c: (0, t), jnp.uint32)
-    out, sink = probes.probe_t3(torch.from_numpy(x), out_rows, n_chunks, SEED)
+    out, sink = probes.probe_t3(torch.from_numpy(x), out_rows, n_chunks, SEED, 1)
     assert np.array_equal(out.numpy(), want)
     assert np.array_equal(sink.numpy(), _block_xor(x))
+
+
+@pytest.mark.parametrize("splits", [2, 3, 7, 40])
+def test_t3_on_the_split_grid(splits):
+    """T3 on B2's split grid: the same output, one sink per (split, lane
+    block), each the XOR of the 64-row tiles of that split's pieces (3
+    chunks of 150 rows: 3 tiles each, the last partial), and the sinks'
+    XOR still that of the whole input."""
+    n_chunks, rows, nbp, out_rows = 3, 150, 384, 24
+    x = _planar(n_chunks * rows, nbp, 6)
+    out, sink = probes.probe_t3(torch.from_numpy(x), out_rows, n_chunks, SEED, splits)
+    one, _ = probes.probe_t3(torch.from_numpy(x), out_rows, n_chunks, SEED, 1)
+    assert torch.equal(out, one)
+    want = []
+    for pieces in split_ranges(3, n_chunks, splits):
+        acc = np.zeros(nbp // 128, dtype=np.int32)
+        for c, b, e in pieces:
+            acc ^= _block_xor(x[c * rows + 64 * b : c * rows + min(64 * e, rows)])
+        want.append(acc)
+    assert np.array_equal(sink.numpy(), np.concatenate(want))
+    assert probes.xor_words(sink) == probes.xor_words(torch.from_numpy(x))
 
 
 def test_probes_refuse_what_the_kernel_does_not_take():
@@ -116,7 +138,9 @@ def test_probes_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="multiple of 128"):
         probes.probe_t2(x, 4, 0)
     with pytest.raises(ValueError, match="n_chunks"):
-        probes.probe_t3(torch.zeros((9, 128), dtype=torch.int8), 4, 2, 0)
+        probes.probe_t3(torch.zeros((9, 128), dtype=torch.int8), 4, 2, 0, 1)
+    with pytest.raises(ValueError, match="splits must be >= 1"):
+        probes.probe_t3(torch.zeros((8, 128), dtype=torch.int8), 4, 2, 0, 0)
     with pytest.raises(ValueError, match="int8"):
         probes.probe_t1(torch.zeros((8, 128), dtype=torch.int32), 4, 0)
     meta = torch.empty((8, 128), dtype=torch.int8, device="meta")
@@ -174,7 +198,10 @@ def test_config3_tool_sweeps_distinct_launches_on_the_cpu():
     assert launches == [(1, 384), (2, 256), (2, 128), (1, 128), (4, 128)]
     assert {"noop_dma_floor_ms", "combined_draw_ms", "no_reconstruction_ms"} <= set(
         art["controls_at_best"])
-    # T3's chunk loop runs at a launch of more than one chunk as well
+    # every row records its split count and real grid (on the CPU, S = 1)
+    assert all(r["splits"] == 1 and r["grid_blocks"] == r["lane_blocks"] * r["splits"]
+               for r in art["rows"])
+    # T3 runs at a launch of more than one chunk as well
     chunked = art["noop_at_best_chunked"]
     assert chunked["n_chunks"] > 1 and chunked["noop_bytes"] == 8 * 3 * 16 * chunked["nbp"] + (
         4 * 8 * 3 * chunked["nbp"] + 4 * chunked["nbp"] // 128)
