@@ -131,16 +131,32 @@ Phases, each of which raises on failure:
     (T3) at the reference's shapes, each with the counters set to 0 just
     before it and read just after (its probe and its real kernel must have
     launched), every reveal checked; each writes its artifact to
-    ``build/measurements/`` and gets one line of headline figures.
+    ``build/measurements/`` and gets one line of headline figures;
+19. mesh: the multi-device pipeline (``sda_tpu_torch.parallel``) in a
+    world of one on NCCL, ``make_mesh(MESH_AXES)`` with no launcher, at
+    full width (``packed_64bit(dimension=1_000_002)``, 768 participants):
+    the jnp step (32 participants, no kernel), the gen-3 step (B6 x 2) in
+    PRNG and caller-randomness mode, a 15-chunk gen-3 stream (B6 x 16),
+    the gen-4 step (B1 x 2), the config-4 stream (B1 x 2, B3 x 13), two
+    lane-batched jobs (B1 x 2), the caller-randomness gen-4 step and a
+    2-chunk stream, the chunk loop once and two degraded finishes
+    (dropping clerks 0 and 5, B1 x 1 each). Every step's launches are
+    counted exactly, every reveal checked, every caller-randomness output
+    bit-equal to the engine's single-device entry point on the same inputs
+    (``aggregate``, ``aggregate_mxu_kernel``, ``aggregate_mxu8_kernel``,
+    ``aggregate_mxu8_kernel_streaming``; the degraded finishes to the full
+    one); each step is timed with CUDA events beside that entry point, and
+    the gen-3 and gen-4 steps' device time split by torch op
+    (``torch.profiler``).
 
 The protocol host plane (``sda_tpu_torch.client`` against
 ``sda_tpu_torch.server``) needs libsodium, which the card's machine does
 not have, so no phase here runs it; the CPU tests hold it.
 
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or run
-outside a checkout of the repository, it exits non-zero and prints no
-result.
+The second-to-last line is a JSON object describing each kernel (B1, B3
+and B6 with the mesh's launches and step times); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -184,6 +200,11 @@ FOLD_DRAW_OPS = 4 * 8
 # Philox4x32-10's multipliers as cuobjdump prints an immediate (signed or not)
 PHILOX_MUL_RE = re.compile(r"-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57", re.I)
 GEN1_STREAM = dict(chunks=3, p_chunk=64)
+# the multi-device pipeline on the one card: a world of one, every axis 1;
+# the gen-3 stream's chunks, the jnp step's participants, the clerks each
+# degraded finish drops
+MESH_AXES = {"p": 1, "d": 1, "c": 1}
+MESH = dict(stream7_chunks=15, jnp_participants=32, drops=(0, 5))
 # ptxas's (registers, spilled bytes) of B1, B3 and B6's MT1-MT12 instances
 # when their times in PERF.md were measured (B6: registers, no spill); a
 # change to the kernels' shared code must leave them as they are
@@ -2176,6 +2197,239 @@ def phase_tools():
     return res
 
 
+def _counted(fn, what: str, **launches):
+    """One call of ``fn`` with the launch counts set to 0 just before it and
+    read just after; they must equal ``launches`` exactly."""
+    import torch
+
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    if _counts() != _only(**launches):
+        raise AssertionError(f"{what} launched {_counts()}, not {launches}")
+    return out
+
+
+def _bit_equal(got, want, what: str):
+    import torch
+
+    if tuple(got.shape) != tuple(want.shape) or not torch.equal(got.to(torch.int64),
+                                                                want.to(torch.int64)):
+        raise AssertionError(f"{what}: the mesh's output != the engine's single-device output")
+
+
+def _slots_view(sec, p_count: int, slots: int, k: int, L: int, width: int = 128):
+    """The secret slots of the first ``width`` lanes of a caller-randomness
+    planar tensor (``slots`` per participant), as a ``k``-slot planar
+    tensor: what the reveal checks read."""
+    return sec[:, :width].reshape(p_count, slots, L, width)[:, :k].reshape(-1, width)
+
+
+def phase_mesh(mesh, iters: int = 10):
+    """The multi-device pipeline (``sda_tpu_torch.parallel``) in a world of
+    one on ``mesh``, at full width: each step counted, its reveal checked,
+    caller-randomness outputs bit-equal to the engine's single-device entry
+    points, and the step timed beside them with CUDA events."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops.modmat import uniform_limbs
+    from sda_tpu_torch.parallel import ShardedAggregationPipeline
+    from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    model = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM)
+    engine = model.engine
+    pipe = ShardedAggregationPipeline(engine, mesh)
+    spec, mxu, L8 = engine.spec, engine.mxu, engine.mxu8.L8
+    k, nb, P = spec.secret_count, engine.nb, HEADLINE_P
+    m = k + spec.randomness_count
+    nbp = -(-nb // LANES) * LANES
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+
+    def counted(fn, what, **want):
+        out = _counted(fn, what, **want)
+        res["launches"][what] = {name: n for name, n in _counts().items() if n}
+        return out
+
+    def timed(name, mesh_fn, engine_fn, n=iters, warmup=2):
+        res[name] = {"mesh": cuda_time(mesh_fn, iters=n, warmup=warmup),
+                     "engine": cuda_time(engine_fn, iters=n, warmup=warmup)}
+
+    # jnp: the CIOS step (share matmul, transposition, combine, reconstruction)
+    n_jnp = MESH["jnp_participants"]
+    secrets, gen = model.example_inputs(participants=n_jnp, seed=3)
+    rand = uniform_limbs(engine.ctx, gen, (n_jnp, nb, spec.randomness_count))
+    out = counted(lambda: pipe.aggregate(secrets, rand), "the mesh jnp step")
+    _bit_equal(out, engine.aggregate(secrets, rand), "jnp")
+    raw = np.random.default_rng(3).integers(0, min(spec.modulus, 1 << 31),
+                                            size=(n_jnp, HEADLINE_DIM))
+    if not np.array_equal(model.reveal(out).astype(np.int64), raw.sum(axis=0) % spec.modulus):
+        raise AssertionError("mesh jnp reveal != numpy sum mod p")
+    timed("jnp", lambda i: pipe.aggregate(secrets, rand),
+          lambda i: engine.aggregate(secrets, rand), n=2, warmup=0)
+    del secrets, rand, out
+    torch.cuda.empty_cache()
+
+    # gen 3: B6 per shard, then a B6 reconstruction
+    sec7 = _planar7_secrets(P * k * mxu.L7, nbp, mxu, seed=61)
+    out = counted(lambda: pipe.aggregate_mxu(sec7, 1), "the mesh gen-3 step", mxu7_fused=2)
+    if tuple(out.shape) != (nbp, k, engine.ctx.L):
+        raise AssertionError(f"mesh gen-3 output has shape {tuple(out.shape)}")
+    _reveal7_check(engine, sec7, out, P, k, what="mesh gen-3")
+    timed("gen3", lambda i: pipe.aggregate_mxu(sec7, i),
+          lambda i: engine.aggregate_mxu_kernel(sec7, i, P, LANES))
+    res["gen3_by_op_ms"] = _device_ms_by_op(lambda i: pipe.aggregate_mxu(sec7, i))
+    n7 = MESH["stream7_chunks"]
+    out = counted(lambda: pipe.aggregate_mxu_streaming([lambda i: sec7] * n7, seed0=3),
+                   "the mesh gen-3 stream", mxu7_fused=n7 + 1)
+    _reveal7_check(engine, sec7, out, P, k, times=n7, what="mesh gen-3 streaming")
+    timed("gen3_stream",
+          lambda i: pipe.aggregate_mxu_streaming([lambda c: sec7] * n7, seed0=100 + 7919 * n7 * i),
+          lambda i: engine.aggregate_mxu_kernel_streaming([lambda c: sec7] * n7, P,
+                                                          seed0=100 + 7919 * n7 * i, lanes=LANES),
+          n=3, warmup=1)
+    del sec7
+    torch.cuda.empty_cache()
+    ext7 = _planar7_secrets(P * m * mxu.L7, nbp, mxu, seed=62)
+    out = counted(lambda: pipe.aggregate_mxu_ext(ext7), "the mesh gen-3 ext step", mxu7_fused=2)
+    _bit_equal(out[:nb], engine.aggregate_mxu_kernel(ext7, 0, P, LANES), "gen-3 ext")
+    _reveal7_check(engine, ext7, out, P, m, what="mesh gen-3 caller-randomness")
+    timed("gen3_ext", lambda i: pipe.aggregate_mxu_ext(ext7),
+          lambda i: engine.aggregate_mxu_kernel(ext7, 0, P, LANES), n=5, warmup=1)
+    del ext7, out
+    torch.cuda.empty_cache()
+
+    # gen 4: B1 per shard (B3 for a stream's later chunks), a B1 reconstruction
+    sec8 = make_planar_secrets(engine, 64, P * k * L8, nbp)
+    out = counted(lambda: pipe.aggregate_mxu8(sec8, 1), "the mesh gen-4 step", mxu8_fused=2)
+    if tuple(out.shape) != (nbp, k, engine.ctx.L):
+        raise AssertionError(f"mesh gen-4 output has shape {tuple(out.shape)}")
+    reveal_check_slice(engine, sec8, out, P, what="mesh gen-4")
+    timed("gen4", lambda i: pipe.aggregate_mxu8(sec8, i),
+          lambda i: engine.aggregate_mxu8_kernel(sec8, i, P, LANES), n=20, warmup=3)
+    res["gen4_by_op_ms"] = _device_ms_by_op(lambda i: pipe.aggregate_mxu8(sec8, i))
+    n8 = CONFIG4["n_chunks"]
+    out = counted(lambda: pipe.aggregate_mxu8_streaming([lambda i: sec8] * n8, seed0=1),
+                   "the mesh gen-4 stream", mxu8_fused=2, mxu8_acc=n8 - 1)
+    reveal_check_slice(engine, sec8, out, P, times=n8, what="mesh gen-4 streaming")
+    timed("gen4_stream",
+          lambda i: pipe.aggregate_mxu8_streaming([lambda c: sec8] * n8, seed0=100 + n8 * i),
+          lambda i: engine.aggregate_mxu8_kernel_streaming([lambda c: sec8] * n8, P,
+                                                           seed0=100 + n8 * i, lanes=LANES),
+          n=3, warmup=1)
+
+    # lane batch: two jobs side by side on the lane axis, one step
+    job_b = make_planar_secrets(engine, 66, P * k * L8, nbp)
+    batched = engine.concat_jobs_lanes([sec8, job_b])
+    out = counted(lambda: pipe.aggregate_mxu8_streaming([batched], seed0=2),
+                   "the mesh lane batch", mxu8_fused=2)
+    for j, job in enumerate((sec8, job_b)):
+        reveal_check_slice(engine, job, out[j * nbp:], P, what=f"mesh lane-batch job {j}")
+    timed("lane_batch", lambda i: pipe.aggregate_mxu8_streaming([batched], seed0=i),
+          lambda i: engine.aggregate_mxu8_kernel_jobs(batched, i, P, 2, lanes=LANES), n=5)
+    del sec8, job_b, batched
+    torch.cuda.empty_cache()
+
+    # the caller's randomness: bit-equal to the engine, one chunk and two
+    ext8 = make_planar_secrets(engine, 65, P * m * L8, nbp)
+    full = counted(lambda: pipe.aggregate_mxu8_streaming([ext8], ext=True),
+                    "the mesh gen-4 ext step", mxu8_fused=2)
+    _bit_equal(full[:nb], engine.aggregate_mxu8_kernel(ext8, 0, P, LANES), "gen-4 ext")
+    reveal_check_slice(engine, _slots_view(ext8, P, m, k, L8), full, P,
+                       what="mesh gen-4 caller-randomness")
+    out = counted(lambda: pipe.aggregate_mxu8_streaming([ext8, ext8], ext=True),
+                   "the mesh gen-4 ext stream", mxu8_fused=2, mxu8_acc=1)
+    _bit_equal(out[:nb], engine.aggregate_mxu8_kernel_streaming([ext8, ext8], P, lanes=LANES),
+               "gen-4 ext stream")
+
+    # the degraded committee: the chunk's partial sums once, then each subset
+    part = counted(lambda: pipe.mxu8_partials([ext8], ext=True), "the mesh chunk loop",
+                    mxu8_fused=1)
+    res["degraded"] = []
+    for drop in MESH["drops"]:
+        subset = [i for i in range(spec.share_count) if i != drop]
+        mat = model.scheme.reconstruct_matrix(subset)
+        out = counted(lambda: pipe.aggregate_mxu8_degraded(part, subset, mat),
+                       f"the degraded finish without clerk {drop}", mxu8_fused=1)
+        _bit_equal(out, full, f"degraded finish without clerk {drop}")
+        res["degraded"].append(cuda_time(lambda i: pipe.aggregate_mxu8_degraded(part, subset, mat),
+                                         iters=iters, warmup=2))
+    res["full_finish"] = cuda_time(lambda i: engine.reconstruct_planar8(part, LANES), iters=iters,
+                                   warmup=2)
+    del ext8, part, full, out
+    torch.cuda.empty_cache()
+    res["shape"] = f"P={P} dim={HEADLINE_DIM} NBP={nbp}"
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def _device_ms_by_op(fn, iters: int = 5) -> dict | None:
+    """Per-call device time (ms) of ``fn`` by what launched it, from a
+    ``torch.profiler`` trace of ``iters`` calls after one untraced call:
+    each torch op's own kernels (its self device time), and each kernel no
+    torch op launched (the port's, launched through ctypes) by its bare
+    name. None when the trace holds no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i + 1)
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            out[e.key] += getattr(e, "self_device_time_total", 0) / 1e3 / iters
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "at::native" not in e.name \
+                and not e.name.startswith(("Memcpy", "Memset")):
+            plain = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            out[re.split(r"[<(]", plain, maxsplit=1)[0].split("::")[-1]] += \
+                (e.time_range.end - e.time_range.start) / 1e3 / iters
+    return {name: ms for name, ms in out.most_common() if ms > 0} or None
+
+
+def _mesh_lines(r: dict, card: str) -> list[str]:
+    def pair(name):
+        a, b = r[name]["mesh"], r[name]["engine"]
+        return (f"mesh {a.median_ms:.4f} ms (min {a.min_ms:.4f}, max {a.max_ms:.4f}), engine "
+                f"{b.median_ms:.4f} ms (min {b.min_ms:.4f}, max {b.max_ms:.4f})")
+
+    def by_op(name):
+        by = r[name]
+        if by is None:
+            return "not measured (no device activity in the trace)"
+        return ", ".join(f"{n} {ms:.4f}" for n, ms in by.items())
+
+    deg = ", ".join(f"without clerk {d} {t.median_ms:.4f} ms" for d, t in
+                    zip(MESH["drops"], r["degraded"]))
+    n7, n8 = MESH["stream7_chunks"], CONFIG4["n_chunks"]
+    return [
+        f"mesh: world 1 on NCCL, mesh {MESH_AXES}, {r['shape']} on {card}, {r['s']:.1f} s in "
+        f"all; jnp step "
+        f"({MESH['jnp_participants']} participants, no kernel): {pair('jnp')}; bit-equal to "
+        f"engine.aggregate, reveal exact",
+        f"mesh: gen-3 step (B6 x 2): {pair('gen3')} (engine: one B6 with fused reconstruction); "
+        f"caller randomness {pair('gen3_ext')}, bit-equal to aggregate_mxu_kernel; stream "
+        f"{n7} chunks (B6 x {n7 + 1}): {pair('gen3_stream')}; reveals exact",
+        f"mesh: gen-4 step (B1 x 2): {pair('gen4')} (engine: one B1 with fused reconstruction); "
+        f"config-4 stream {n8} x {HEADLINE_P} (B1 x 2 + B3 x {n8 - 1}): {pair('gen4_stream')}; "
+        f"lane batch of 2 jobs (B1 x 2): {pair('lane_batch')} (engine: aggregate_mxu8_kernel_jobs, "
+        f"one B1); caller randomness bit-equal to aggregate_mxu8_kernel and (2 chunks) "
+        f"aggregate_mxu8_kernel_streaming; reveals exact",
+        f"mesh: degraded finishes (B1 x 1 each, bit-equal to the full finish): {deg}; the "
+        f"engine's reconstruct_planar8 {r['full_finish'].median_ms:.4f} ms",
+        f"mesh: device time per step by op (torch.profiler, ms): gen-4 step "
+        f"{by_op('gen4_by_op_ms')}; gen-3 step {by_op('gen3_by_op_ms')}",
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -2478,6 +2732,14 @@ def main() -> int:
           f"{tools['config3']['counts']['probe_t3']}; {tools['config3']['s']:.1f} s; "
           f"wrote {tools['config3']['path'].relative_to(root)}", flush=True)
 
+    from sda_tpu_torch.parallel import make_mesh
+
+    ms = phase_mesh(make_mesh(MESH_AXES))
+    torch.distributed.destroy_process_group()
+    for line in _mesh_lines(ms, card):
+        print(line, flush=True)
+    ml = ms["launches"]
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -2510,6 +2772,13 @@ def main() -> int:
             "serving_ms": [sv[False]["timing"].median_ms, sv[True]["timing"].median_ms],
             "serving_bound_ms": sv[False]["bound_ms"],
             "serving_shape": sv["shape"],
+            "mesh_launches": {"step": ml["the mesh gen-4 step"]["mxu8_fused"],
+                              "stream": ml["the mesh gen-4 stream"]["mxu8_fused"],
+                              "lane_batch": ml["the mesh lane batch"]["mxu8_fused"],
+                              "degraded_finish": ml["the degraded finish without clerk 0"]
+                              ["mxu8_fused"]},
+            "mesh_step_ms": ms["gen4"]["mesh"].median_ms,
+            "mesh_engine_step_ms": ms["gen4"]["engine"].median_ms,
         },
         {
             "name": "mxu8_chunked",
@@ -2561,6 +2830,9 @@ def main() -> int:
             "config4_host_step_ms": c4["host_step_ms"],
             "config4_idle_share": c4["idle_share"],
             "config4_traced_idle_share": c4["traced_idle_share"],
+            "mesh_launches": ml["the mesh gen-4 stream"]["mxu8_acc"],
+            "mesh_stream_ms": ms["gen4_stream"]["mesh"].median_ms,
+            "mesh_engine_stream_ms": ms["gen4_stream"]["engine"].median_ms,
         },
         {
             "name": "chacha_keystream",
@@ -2633,6 +2905,10 @@ def main() -> int:
             "streaming_step_ms": ts3.median_ms,
             "streaming_host_step_ms": s3["host_step_ms"],
             "streaming_step_bound_ms": s3["step_bound_ms"],
+            "mesh_launches": {"step": ml["the mesh gen-3 step"]["mxu7_fused"],
+                              "stream": ml["the mesh gen-3 stream"]["mxu7_fused"]},
+            "mesh_step_ms": ms["gen3"]["mesh"].median_ms,
+            "mesh_engine_step_ms": ms["gen3"]["engine"].median_ms,
         },
         {
             "name": "planar_cios",

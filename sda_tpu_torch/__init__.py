@@ -17,6 +17,8 @@ Layer map (bottom-up):
   kernels (CUDA C++ under ``ops/csrc``)
 - :mod:`sda_tpu_torch.engine`   the bulk aggregation executor and
   ``device_combine``
+- :mod:`sda_tpu_torch.parallel` the multi-device pipeline: a ``(p, d, c)``
+  ``DeviceMesh`` and modular collectives over ``torch.distributed``
 - :mod:`sda_tpu_torch.routing`  measured host-vs-device route decisions
 - :mod:`sda_tpu_torch.masking`  None / Full / ChaCha maskers
 - :mod:`sda_tpu_torch.models`   the federated-aggregation workload

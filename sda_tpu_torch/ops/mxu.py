@@ -140,20 +140,20 @@ class MxuContext:
 
     # ------------------------------------------------------- limb reshape
 
-    def limbs7_from_16(self, x16) -> torch.Tensor:
+    def limbs7_from_16(self, x16, dim: int = -1) -> torch.Tensor:
         """``[..., L16]`` 16-bit limbs -> ``[..., L7]`` int8 7-bit limbs (pure
-        bit regrouping)."""
+        bit regrouping). ``dim`` is the limb axis of both: a limb-major
+        ``[n, L16, T]`` tensor gives ``[n, L7, T]`` planes with no transpose."""
         L16 = self.ctx.L
-        x16 = x16.to(torch.int64)
         out = []
         for l in range(self.L7):
             o = _W7 * l
             w, sh = o // _W16, o % _W16
-            v = x16[..., w] >> sh
+            v = x16.select(dim, w).to(torch.int64) >> sh
             if sh + _W7 > _W16 and w + 1 < L16:
-                v = v | (x16[..., w + 1] << (_W16 - sh))
-            out.append(v & _MASK7)
-        return torch.stack(out, dim=-1).to(torch.int8)
+                v = v | (x16.select(dim, w + 1).to(torch.int64) << (_W16 - sh))
+            out.append((v & _MASK7).to(torch.int8))
+        return torch.stack(out, dim=dim)
 
     def raw_limbs(self, bits_u32) -> torch.Tensor:
         """``[..., W]`` u32 random words (int64) -> ``[..., 2*L7]`` int8.
