@@ -147,11 +147,24 @@ Phases, each of which raises on failure:
     ``aggregate_mxu8_kernel_streaming``; the degraded finishes to the full
     one); each step is timed with CUDA events beside that entry point, and
     the gen-3 and gen-4 steps' device time split by torch op
-    (``torch.profiler``).
+    (``torch.profiler``);
+20. drivers: ``sda_tpu_torch.graft_entry.entry()``'s forward step (16 x
+    1,024, CIOS, no kernel) revealed exactly; ``dryrun_multichip(1)``, the
+    reference dryrun's seven checks in a world of one on NCCL (B6 x 5, B1
+    x 8, B3 x 3, counted exactly); then the scaling bench
+    (``sda_tpu_torch.tools.bench_scaling``) in a world of one: the config-5
+    split at full width, 131 chunks x 768 participants x 1,000,002
+    dimensions (one 6.15 GB planar buffer re-read by every chunk): the
+    chunk loop (B1 x 1 + B3 x 130) and the finish (B1 x 1), each counted,
+    the reveal checked on the first 512 lanes, the loop timed 3 times and
+    the finish 5 with CUDA events beside their bounds; and the weak-scaling
+    row n = 1 (768 x 1,000,002, B1 x 2 a step), reveal-checked and timed.
 
 The protocol host plane (``sda_tpu_torch.client`` against
-``sda_tpu_torch.server``) needs libsodium, which the card's machine does
-not have, so no phase here runs it; the CPU tests hold it.
+``sda_tpu_torch.server``, also over HTTP through ``sda_tpu_torch.http``
+and the ``cli``/``server_cli`` walkthrough) needs libsodium, which the
+card's machine does not have, so no phase here runs it; the CPU tests
+hold it.
 
 The second-to-last line is a JSON object describing each kernel (B1, B3
 and B6 with the mesh's launches and step times); the last line is
@@ -205,6 +218,13 @@ GEN1_STREAM = dict(chunks=3, p_chunk=64)
 # degraded finish drops
 MESH_AXES = {"p": 1, "d": 1, "c": 1}
 MESH = dict(stream7_chunks=15, jnp_participants=32, drops=(0, 5))
+# the drivers: graft_entry's dryrun launches (B6 x 2 + 3 for the gen-3 step
+# and its 2-chunk stream; B1 x 2 + B3 for the gen-4 stream, x 2 again for
+# each of 2 degraded finishes, B1 x 2 for the 2-job lane batch), and the
+# scaling bench's config-5 split at full width: 131 chunks x 768 (100,608
+# participants) x 1,000,002 dimensions (BASELINE.md's config 5 on one card)
+DRYRUN_LAUNCHES = dict(mxu7_fused=5, mxu8_fused=8, mxu8_acc=3)
+CONFIG5 = dict(participants_per_device=768, dim_per_device=333_334, chunks=131)
 # ptxas's (registers, spilled bytes) of B1, B3 and B6's MT1-MT12 instances
 # when their times in PERF.md were measured (B6: registers, no spill); a
 # change to the kernels' shared code must leave them as they are
@@ -2366,6 +2386,107 @@ def phase_mesh(mesh, iters: int = 10):
     return res
 
 
+def phase_drivers():
+    """The drivers on the card: ``graft_entry.entry()``'s forward step,
+    ``graft_entry.dryrun_multichip(1)`` in a world of one, then the scaling
+    bench's config-5 split at full width and its weak-scaling row ``n = 1``
+    in a world of one, each counted exactly and its reveal checked, timed
+    by the bench's own functions (CUDA events)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sda_tpu_torch import graft_entry
+    from sda_tpu_torch.parallel import make_mesh
+    from sda_tpu_torch.tools import bench_scaling as bs
+    from sda_tpu_torch.tools._common import bound, mxu8_cost, reveal_check_slice
+
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+
+    def counted(fn, what, **want):
+        out = _counted(fn, what, **want)
+        res["launches"][what] = {name: n for name, n in _counts().items() if n}
+        return out
+
+    # entry(): the CIOS forward step on the card, no kernel
+    fn, (secrets, gen) = graft_entry.entry()
+    model = fn.__self__
+    out = counted(lambda: fn(secrets, gen), "the entry forward step")
+    raw = np.random.default_rng(0).integers(0, min(model.scheme_modulus, 1 << 31),
+                                            size=(16, 1024))
+    if not np.array_equal(model.reveal(out).astype(np.int64),
+                          raw.sum(axis=0) % model.scheme_modulus):
+        raise AssertionError("entry() reveal != numpy sum mod p")
+    del secrets, gen, out
+    # the dryrun's seven checks in a world of one on NCCL, made and closed by it
+    counted(lambda: graft_entry.dryrun_multichip(1), "the dryrun", **DRYRUN_LAUNCHES)
+
+    mesh = make_mesh(MESH_AXES)
+    c = CONFIG5
+    case = bs.config5_case(mesh, c["participants_per_device"], c["dim_per_device"], c["chunks"])
+    engine, n = case.pipe.engine, c["chunks"]
+    acc = counted(lambda: case.loop(0), "the config-5 chunk loop", mxu8_fused=1,
+                  mxu8_acc=n - 1)
+    out = counted(lambda: case.finish(acc), "the config-5 finish", mxu8_fused=1)
+    reveal_check_slice(engine, case.planar, out, case.p_chunk, width=bs.LANES, times=n,
+                       what="config-5 split")
+    loop, finish = bs.time_config5(case, acc, "cuda")
+    row = bs.config5_row(case, loop.median_ms / 1e3, finish.median_ms / 1e3)
+    rows, nbp = case.planar.shape
+    plan = engine._plan("combine", rows, case.p_chunk, case.planar.device)
+    rec = engine._plan("reconstruct", engine.spec.share_count * engine.mxu8.L8, 1,
+                       case.planar.device)
+    loop_bound = bound([mxu8_cost(plan, nbp)] + [mxu8_cost(plan, nbp, acc=True)] * (n - 1))
+    res["config5"] = {"row": row, "loop": loop, "finish": finish, "loop_bound": loop_bound,
+                      "finish_bound": bound([mxu8_cost(rec, nbp)]),
+                      "sec_gb": case.planar.numel() / 1e9, "nbp": nbp, "width": bs.LANES}
+    del case, acc, out
+    torch.cuda.empty_cache()
+
+    weak = bs.weak_case(mesh, c["participants_per_device"], c["dim_per_device"])
+    out = counted(lambda: weak.step(0), "the weak-scaling step", mxu8_fused=2)
+    reveal_check_slice(weak.pipe.engine, weak.inputs, out, weak.p_count, what="weak-scaling row")
+    step = bs.time_calls(weak.step, "cuda", bs.STEP_ITERS)
+    res["weak"] = {"row": bs.weak_row(step.median_ms / 1e3, weak.fieldops, 1, None, "cuda"),
+                   "step": step, "p_count": weak.p_count,
+                   "dimension": weak.pipe.engine.dimension}
+    del weak, out
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def _drivers_lines(r: dict, card: str, b3_ms: float) -> list[str]:
+    c5, wk = r["config5"], r["weak"]
+    row, loop, fin = c5["row"], c5["loop"], c5["finish"]
+    per_chunk = loop.median_ms / row["chunks"]
+    w = wk["row"]
+    return [
+        f"drivers: on {card}, {r['s']:.1f} s in all: graft_entry.entry() forward (16 x 1024, "
+        f"CIOS, no kernel) revealed exactly; graft_entry.dryrun_multichip(1) on NCCL, world 1: "
+        f"OK, launches {r['launches']['the dryrun']} exact",
+        f"drivers: config-5 split (bench_scaling, world 1) {row['chunks']} chunks x "
+        f"{row['participants'] // row['chunks']} = {row['participants']} participants x "
+        f"{row['dimension']} on {card}: chunk loop (B1 x 1 + B3 x {row['chunks'] - 1}) median "
+        f"{loop.median_ms:.4f} ms (min {loop.min_ms:.4f}, max {loop.max_ms:.4f}), "
+        f"{per_chunk:.4f} ms a chunk (config 4's B3 launch {b3_ms:.4f} ms), bound "
+        f"{c5['loop_bound'][0]:.4f} ms ({c5['loop_bound'][1]}), "
+        f"{c5['loop_bound'][0] / loop.median_ms:.2f} of it; finish (B1 x 1) median "
+        f"{fin.median_ms:.4f} ms (min {fin.min_ms:.4f}, max {fin.max_ms:.4f}), bound "
+        f"{c5['finish_bound'][0]:.4f} ms; comm_fraction {row['comm_fraction']:.6f}, "
+        f"gfieldops_per_s {row['gfieldops_per_s']:.4f}, allreduce_payload_mb "
+        f"{row['allreduce_payload_mb']:.6f}; sec buffer {c5['sec_gb']:.2f} GB (NBP "
+        f"{c5['nbp']}); reveal exact on the first {c5['width']} lanes",
+        f"drivers: weak-scaling row n=1 (bench_scaling, world 1) {wk['p_count']} x "
+        f"{wk['dimension']} on {card}: aggregate_mxu8 (B1 x 2) median "
+        f"{wk['step'].median_ms:.4f} ms (min {wk['step'].min_ms:.4f}, max "
+        f"{wk['step'].max_ms:.4f}), gfieldops_per_s {w['gfieldops_per_s']:.4f}, "
+        f"weak_scaling_efficiency {w['weak_scaling_efficiency']:.4f}; reveal exact",
+    ]
+
+
 def _device_ms_by_op(fn, iters: int = 5) -> dict | None:
     """Per-call device time (ms) of ``fn`` by what launched it, from a
     ``torch.profiler`` trace of ``iters`` calls after one untraced call:
@@ -2739,6 +2860,10 @@ def main() -> int:
     for line in _mesh_lines(ms, card):
         print(line, flush=True)
     ml = ms["launches"]
+    dr = phase_drivers()
+    for line in _drivers_lines(dr, card, c4["timing"].median_ms):
+        print(line, flush=True)
+    dl = dr["launches"]
 
     print(card)
     print(json.dumps({"kernels": [
@@ -2779,6 +2904,12 @@ def main() -> int:
                               ["mxu8_fused"]},
             "mesh_step_ms": ms["gen4"]["mesh"].median_ms,
             "mesh_engine_step_ms": ms["gen4"]["engine"].median_ms,
+            "drivers_launches": {"dryrun": dl["the dryrun"]["mxu8_fused"],
+                                 "config5_loop": dl["the config-5 chunk loop"]["mxu8_fused"],
+                                 "config5_finish": dl["the config-5 finish"]["mxu8_fused"],
+                                 "weak_step": dl["the weak-scaling step"]["mxu8_fused"]},
+            "config5_finish_ms": dr["config5"]["finish"].median_ms,
+            "weak_step_ms": dr["weak"]["step"].median_ms,
         },
         {
             "name": "mxu8_chunked",
@@ -2833,6 +2964,10 @@ def main() -> int:
             "mesh_launches": ml["the mesh gen-4 stream"]["mxu8_acc"],
             "mesh_stream_ms": ms["gen4_stream"]["mesh"].median_ms,
             "mesh_engine_stream_ms": ms["gen4_stream"]["engine"].median_ms,
+            "drivers_launches": {"dryrun": dl["the dryrun"]["mxu8_acc"],
+                                 "config5_loop": dl["the config-5 chunk loop"]["mxu8_acc"]},
+            "config5_loop_ms": dr["config5"]["loop"].median_ms,
+            "config5_loop_bound_ms": dr["config5"]["loop_bound"][0],
         },
         {
             "name": "chacha_keystream",
@@ -2909,6 +3044,7 @@ def main() -> int:
                               "stream": ml["the mesh gen-3 stream"]["mxu7_fused"]},
             "mesh_step_ms": ms["gen3"]["mesh"].median_ms,
             "mesh_engine_step_ms": ms["gen3"]["engine"].median_ms,
+            "drivers_launches": {"dryrun": dl["the dryrun"]["mxu7_fused"]},
         },
         {
             "name": "planar_cios",

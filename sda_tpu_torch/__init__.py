@@ -8,7 +8,7 @@ modules it keeps as its own copies.
 Layer map (bottom-up):
 
 - :mod:`sda_tpu_torch.fields`   prime-field arithmetic (host numpy)
-- :mod:`sda_tpu_torch.ntt`      number-theoretic transform matrices
+- :mod:`sda_tpu_torch.ntt`      number-theoretic transforms and their matrices
 - :mod:`sda_tpu_torch.sharing`  additive & packed-Shamir schemes and their
   device spec
 - :mod:`sda_tpu_torch.chacha`   rand-0.3 ChaCha streams (host oracle, numpy)
@@ -27,8 +27,15 @@ Layer map (bottom-up):
   :mod:`sda_tpu_torch.stores`, :mod:`sda_tpu_torch.server` the protocol's
   host plane: wire resources, sealed boxes and signatures, the participant
   / clerk / recipient client and the in-process server
+- :mod:`sda_tpu_torch.http`, :mod:`sda_tpu_torch.stores_mongo`,
+  :mod:`sda_tpu_torch.cli`, :mod:`sda_tpu_torch.server_cli`,
+  :mod:`sda_tpu_torch.params` the same host plane over REST, on MongoDB
+  and from the command line (``sda``, ``sdad``, the parameter finder)
+- :mod:`sda_tpu_torch.graft_entry` the flagship forward step and the
+  multi-device dryrun
 - :mod:`sda_tpu_torch.tools`    the measurement tools (the floor probes of
-  :mod:`sda_tpu_torch.ops.probes`, the combine crossover)
+  :mod:`sda_tpu_torch.ops.probes`, the combine crossover, the mesh scaling
+  benchmark)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

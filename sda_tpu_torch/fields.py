@@ -1,7 +1,7 @@
 """Prime-field arithmetic for secure aggregation (host side, numpy only).
 
-A copy of what the port needs from the reference package's ``fields``
-module, kept so that the port imports nothing of it. Device field math
+A copy of the reference package's ``fields`` module, kept so that the
+port imports nothing of it. Device field math
 lives in :mod:`sda_tpu_torch.ops`.
 
 Two things matter for parity with the upstream Rust protocol:
@@ -35,6 +35,7 @@ __all__ = [
     "trunc_sub_mod",
     "positive",
     "PrimeField",
+    "element_order",
     "find_prime_field",
     "find_special_prime_field",
 ]
@@ -168,6 +169,12 @@ class PrimeField:
     def add(self, a, b):
         return self.canon(self.asarray(a) + self.asarray(b))
 
+    def sub(self, a, b):
+        return self.canon(self.asarray(a) - self.asarray(b))
+
+    def neg(self, a):
+        return self.canon(-self.asarray(a))
+
     def mul(self, a, b):
         if self.small:
             return (np.asarray(a, dtype=np.int64) * np.asarray(b, dtype=np.int64)) % self.p
@@ -187,6 +194,34 @@ class PrimeField:
         b = np.asarray(b, dtype=object)
         out = a @ b
         return np.vectorize(lambda x: int(x) % self.p, otypes=[object])(out)
+
+    def pow(self, base, exp: int):
+        base = self.asarray(base)
+        if base.ndim == 0:
+            return pow(int(base), int(exp) % (self.p - 1) if exp >= 0 else exp, self.p)
+        otype = np.int64 if self.small else object
+        return np.vectorize(lambda x: pow(int(x), int(exp), self.p), otypes=[otype])(base)
+
+    def inv(self, a):
+        a = self.asarray(a)
+        if a.ndim == 0:
+            return pow(int(a), -1, self.p)
+        otype = np.int64 if self.small else object
+        return np.vectorize(lambda x: pow(int(x), -1, self.p), otypes=[otype])(a)
+
+    def sum(self, a, axis=None):
+        a = self.asarray(a)
+        if self.small:
+            # chunked accumulation to avoid int64 overflow on long axes
+            n = a.shape[axis] if axis is not None else a.size
+            max_terms = (1 << 62) // max(self.p, 1)
+            if n <= max_terms:
+                return np.sum(a, axis=axis, dtype=np.int64) % self.p
+        a = np.asarray(a, dtype=object)
+        s = np.sum(a, axis=axis)
+        if isinstance(s, np.ndarray):
+            return np.vectorize(lambda x: int(x) % self.p, otypes=[object])(s)
+        return int(s) % self.p
 
     # ------------------------------------------------------------------ RNG
 
@@ -226,6 +261,9 @@ class PrimeField:
 
     # ------------------------------------------------------- root utilities
 
+    def element_order(self, x: int) -> int:
+        return element_order(int(x), self.p)
+
     def find_element_of_order(self, n: int) -> int:
         """Find an element of exact multiplicative order ``n`` (n | p-1)."""
         if (self.p - 1) % n != 0:
@@ -254,6 +292,15 @@ def _factorise(n: int) -> tuple[int, ...]:
     if n > 1:
         out.append(n)
     return tuple(out)
+
+
+def element_order(x: int, p: int) -> int:
+    """Multiplicative order of ``x`` mod prime ``p``."""
+    order = p - 1
+    for q in _factorise(p - 1):
+        while order % q == 0 and pow(x, order // q, p) == 1:
+            order //= q
+    return order
 
 
 def find_prime_field(min_bits: int, order2: int, order3: int) -> tuple[int, int, int]:

@@ -6,8 +6,8 @@ method takes ``caller`` explicitly — identity is an argument, not ambient
 state (methods.rs docstring convention).
 
 Port of the reference package's ``service`` module. The port implements
-it in process (:class:`sda_tpu_torch.server.SdaServerService`); the
-reference's HTTP proxy is not ported yet.
+it in process (:class:`sda_tpu_torch.server.SdaServerService`) and over
+REST (the proxy :class:`sda_tpu_torch.http.client.HttpSdaService`).
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ jfs layout (server/src/jfs_stores/) including its semantics:
   (jfs_stores/aggregations.rs:110-121).
 
 A dict-backed in-memory variant shares all logic via a tiny KV abstraction
-(the same trick lets a Mongo backend slot in; the port has none yet).
+(the same trick lets the Mongo backend, :mod:`sda_tpu_torch.stores_mongo`,
+slot in).
 
 Port of the reference package's ``stores`` module: the in-memory and JSON
 directory backends.

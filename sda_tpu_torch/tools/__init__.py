@@ -10,6 +10,9 @@ sda_tpu_torch.tools.<name>`` and writing ``build/measurements/<NAME>.json``:
 - :mod:`~sda_tpu_torch.tools.measure_combine_crossover`: the clerk combine's
   fused native route against the streamed device route.
 
+:mod:`~sda_tpu_torch.tools.bench_scaling` (the mesh's weak scaling and the
+config-5 chunk-loop/finish split) prints its JSON and writes no artifact.
+
 Each measuring function takes its shapes as arguments and a ``device``
 (the card unless given ``"cpu"``); on the CPU it runs every check and
 reports no time.

@@ -48,7 +48,40 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[0])
-    assert count >= 39  # every submodule of the slices was imported
+    assert count >= 47  # every submodule of the slices was imported
+
+
+def test_port_imports_without_requests_or_pymongo():
+    """The HTTP proxy imports ``requests`` and the Mongo store ``pymongo``
+    only when one is built: with both unimportable, every submodule still
+    imports, and building either raises ImportError."""
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        sys.modules["requests"] = None  # makes "import requests" raise
+        sys.modules["pymongo"] = None
+        import sda_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(sda_tpu_torch.__path__, "sda_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert {"sda_tpu_torch.http.client", "sda_tpu_torch.stores_mongo"} <= set(names)
+        from sda_tpu_torch.client.store import MemoryStore
+        from sda_tpu_torch.http import HttpSdaService
+        from sda_tpu_torch.stores_mongo import MongoStores
+        for build in (lambda: HttpSdaService("http://127.0.0.1:1", MemoryStore()),
+                      lambda: MongoStores("mongodb://127.0.0.1:1")):
+            try:
+                build()
+            except ImportError:
+                continue
+            raise AssertionError("built without its package")
+        print(len(names))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
