@@ -158,7 +158,26 @@ Phases, each of which raises on failure:
     chunk loop (B1 x 1 + B3 x 130) and the finish (B1 x 1), each counted,
     the reveal checked on the first 512 lanes, the loop timed 3 times and
     the finish 5 with CUDA events beside their bounds; and the weak-scaling
-    row n = 1 (768 x 1,000,002, B1 x 2 a step), reveal-checked and timed.
+    row n = 1 (768 x 1,000,002, B1 x 2 a step), reveal-checked and timed;
+21. breakdown: ``utils.profiling.device_breakdown`` of the headline step
+    (B1 x 1) and of the mesh's gen-4 step in a world of one (B1 x 2), at
+    the end of the script: each kernel's count of device activities a
+    multiple of the calls traced and B1's equal to the launch counters',
+    the kernels' sum against the step's CUDA-event time, and beside it
+    what a plain profiler session (no throwaway session before it) recorded;
+22. roofline: ``sda_tpu_torch.tools.bench_roofline.measure()`` at the
+    headline's width with the breakdown: the full pipeline and
+    combine-only B1 launches, reveals checked, counted, timed beside the
+    headline phase, the full pipeline's bound equal to the headline's;
+23. chacha native: ``chacha.expand_masks``'s route on the card's host and
+    the native expansion against numpy's, bit-equal, at 64 seeds x
+    1,000,002 (p = 2^63 - 871) and 4 seeds x 4,096 (p = 2^62 + 1, about
+    1/4 of the draws rejected), both on the host clock;
+24. example: ``examples/bulk_aggregation_torch.py``'s ``main`` at its
+    defaults on the card (torch CIOS, no kernel), its reveal exact;
+25. scaling artifact: ``tools.make_scaling_artifact.compose`` on the
+    ``drivers:`` phase's own config-5 row: the projection onto 8 (and 4)
+    cards, labelled projected, written to ``build/measurements/``.
 
 The protocol host plane (``sda_tpu_torch.client`` against
 ``sda_tpu_torch.server``, also over HTTP through ``sda_tpu_torch.http``
@@ -179,7 +198,6 @@ import dataclasses
 import functools
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -210,8 +228,6 @@ CHACHA = dict(seeds=10_000, dimension=1_000_002, chunk_seeds=256, fullmask=64, w
 # adds the 4 limb accumulates of each of the block's 8 draws
 CHACHA_BLOCK_OPS = 976
 FOLD_DRAW_OPS = 4 * 8
-# Philox4x32-10's multipliers as cuobjdump prints an immediate (signed or not)
-PHILOX_MUL_RE = re.compile(r"-0x2daee0ad|-0x326172a9|0xd2511f53|0xcd9e8d57", re.I)
 GEN1_STREAM = dict(chunks=3, p_chunk=64)
 # the multi-device pipeline on the one card: a world of one, every axis 1;
 # the gen-3 stream's chunks, the jnp step's participants, the clerks each
@@ -225,6 +241,11 @@ MESH = dict(stream7_chunks=15, jnp_participants=32, drops=(0, 5))
 # participants) x 1,000,002 dimensions (BASELINE.md's config 5 on one card)
 DRYRUN_LAUNCHES = dict(mxu7_fused=5, mxu8_fused=8, mxu8_acc=3)
 CONFIG5 = dict(participants_per_device=768, dim_per_device=333_334, chunks=131)
+# the native ChaCha expansion against numpy's: (seeds, dimensions, modulus);
+# at 2^62 + 1 about 1/4 of the draws are rejected and numpy takes its
+# scalar path, so that case stays small
+CHACHA_NATIVE = {"p = 2^63 - 871": (64, 1_000_002, (1 << 63) - 871),
+                 "p = 2^62 + 1": (4, 4_096, (1 << 62) + 1)}
 # ptxas's (registers, spilled bytes) of B1, B3 and B6's MT1-MT12 instances
 # when their times in PERF.md were measured (B6: registers, no spill); a
 # change to the kernels' shared code must leave them as they are
@@ -237,32 +258,11 @@ KEPT_PTXAS = {
 }
 
 
-def _kernel_label(mangled: str):
-    """Short name of a kernel instantiation: ``MT<n>`` for the mxu8 and
-    mxu7 kernels' templates (B2: its split kernel), ``epi<n>`` for B2's
-    epilogue kernel, ``L<n>`` for the planar CIOS kernel's, the function
-    name for the ChaCha kernels."""
-    m = re.search(r"mxu(?:[78]_fused|8_split)_kernelILi(\d+)E", mangled)
-    if m:
-        return f"MT{m.group(1)}"
-    m = re.search(r"mxu8_epilogue_kernelILi(\d+)E", mangled)
-    if m:
-        return f"epi{m.group(1)}"
-    m = re.search(r"planar_cios_kernelILi(\d+)E", mangled)
-    if m:
-        return f"L{m.group(1)}"
-    m = re.search(r"probe_lanes_kernelILb([01])E", mangled)
-    if m:
-        return "T3" if m.group(1) == "1" else "T1/T2"
-    if "probe_bare_kernel" in mangled:
-        return "T1'"
-    m = re.search(r"chacha_(?:keystream|fold)_kernel", mangled)
-    return m.group(0) if m else None
-
-
 def _ptxas_spills(report: str) -> dict:
     """``label -> (registers, spill-store bytes)`` for every kernel
     instantiation in a ptxas report."""
+    from sda_tpu_torch.ops.sass import kernel_label
+
     out, current, spill = {}, None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -273,7 +273,7 @@ def _ptxas_spills(report: str) -> dict:
             spill = max(spill, int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
-            label = _kernel_label(current)
+            label = kernel_label(current)
             if label:
                 out[label] = (int(m.group(1)), spill)
             current = None
@@ -294,37 +294,6 @@ def _ptxas_summary(report: str) -> str:
     return " ".join(f"{k}:{regs[k]}" for k in order) + f"; max spill {spill} B"
 
 
-@functools.lru_cache(maxsize=None)
-def _sass_listing(source: str, defines=()) -> dict:
-    """Per kernel of a built library, its SASS as ``cuobjdump -sass`` lists
-    it: ``[(address, opcode with modifiers, operands), ...]``."""
-    import shutil
-
-    from sda_tpu_torch.ops.cuda_build import _library_path
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    proc = subprocess.run([tool, "-sass", str(_library_path(source, tuple(defines)))],
-                          capture_output=True, text=True, timeout=120, check=True)
-    return _parse_sass(proc.stdout)
-
-
-def _parse_sass(text: str) -> dict:
-    """``cuobjdump -sass`` output -> ``{kernel label: [(address, opcode,
-    operands), ...]}``."""
-    listing, current = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            current = _kernel_label(m.group(1))
-            if current:
-                listing[current] = []
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
-        if m and current:
-            listing[current].append((int(m.group(1), 16), m.group(2), m.group(3)))
-    return listing
-
-
 def _opcode_counts(instrs) -> collections.Counter:
     """The count of each opcode (without modifiers) among ``instrs``."""
     return collections.Counter(op.split(".")[0] for _, op, _ in instrs)
@@ -340,30 +309,6 @@ def _pipe_counts(instrs) -> dict:
     fma = sum(1 for _, op, _ in instrs if op.startswith("IMAD"))
     alu = sum(1 for _, op, _ in instrs if not op.startswith("IMAD") and not op.startswith(other))
     return {"total": len(instrs), "fma": fma, "alu": alu}
-
-
-def _loops(instrs):
-    """(head, tail) addresses of every loop: each branch back to an earlier
-    (or the same) address."""
-    return [(_target(args), addr) for addr, op, args in instrs
-            if op == "BRA" and _target(args) <= addr]
-
-
-def _target(args: str) -> int:
-    """The address a branch's operands name."""
-    return int(re.search(r"0x([0-9a-f]+)", args).group(1), 16)
-
-
-def _span(instrs, head: int, tail: int):
-    return [i for i in instrs if head <= i[0] <= tail]
-
-
-def _innermost_philox_loops(instrs):
-    """The bodies of the loops that hold a Philox multiply and no other loop."""
-    loops = _loops(instrs)
-    return [_span(instrs, h, t) for h, t in loops
-            if any(PHILOX_MUL_RE.search(a) for _, _, a in _span(instrs, h, t))
-            and not any(h <= h2 and t2 <= t and (h2, t2) != (h, t) for h2, t2 in loops)]
 
 
 def _variants() -> dict:
@@ -752,7 +697,8 @@ def phase_headline(mhz: float, iters: int = 20):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
-    from sda_tpu_torch.tools._common import make_planar_secrets, mxu8_cost, reveal_check_slice
+    from sda_tpu_torch.tools._common import (make_planar_secrets, mxu8_bound, mxu8_cost,
+                                             reveal_check_slice)
 
     model = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM)
     engine = model.engine
@@ -802,7 +748,7 @@ def phase_headline(mhz: float, iters: int = 20):
     )
     t_rp1 = cuda_time(lambda i: m8.run_mxu8(plan_rp1, sec8, i), iters=iters, warmup=3)
     cost = mxu8_cost(plan, nbp)
-    bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz)
+    bound_ms, bound_by, parts, call_ops = mxu8_bound(plan, nbp, mhz)
     philox_words = float(nbp) * plan.rp * plan.words_per_p
     return {
         "launches": launches, "timing": t, "plain_ms": t_plain.median_ms, "max_abs_err": err,
@@ -814,25 +760,20 @@ def phase_headline(mhz: float, iters: int = 20):
     }
 
 
-def _trace(fn):
-    """One call of ``fn`` under ``torch.profiler``: (device busy ms, host
-    wall ms, device activities). Busy is the union of the device-side
-    intervals (kernels, copies) in the trace, None when the trace holds no
-    device activity; wall is the host clock around the call and a sync."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _trace(fn, iters: int = 2):
+    """``iters`` calls of ``fn`` under ``torch.profiler``
+    (``profiling.profile_calls``, after an untraced call): (device busy ms a
+    call, host wall ms a call, device activities by kernel name). Busy is
+    the union of the device-side intervals (kernels, copies) in the trace
+    (which holds some: ``profile_calls`` raises otherwise); wall is the host
+    clock around the calls and a sync."""
+    from sda_tpu_torch.utils.profiling import device_activities, kernel_name, profile_calls
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return None, wall_ms, 0
+    prof, seconds = profile_calls(lambda i: fn(), iters=iters)
+    wall_ms = seconds * 1e3 / iters
+    activities = device_activities(prof)
+    spans = sorted((start, end) for _, start, end, _ in activities)
+    names = collections.Counter(kernel_name(name) for name, *_ in activities)
     busy_us, (lo, hi) = 0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -840,29 +781,7 @@ def _trace(fn):
             lo, hi = start, end
         else:
             hi = max(hi, end)
-    return (busy_us + hi - lo) / 1e3, wall_ms, len(spans)
-
-
-def _device_ms_by_kernel(fn, iters: int = 5) -> dict | None:
-    """Per-call device time (ms) of each kind of device activity ``fn``
-    makes, from a ``torch.profiler`` trace of ``iters`` calls after one
-    untraced call: ``{name: ms}``, or None when the trace holds no device
-    activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i + 1)
-        torch.cuda.synchronize()
-    total = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            total[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    return {name: ms / iters for name, ms in total.items()} or None
+    return (busy_us + hi - lo) / 1e3 / iters, wall_ms, names
 
 
 def phase_config3(mhz: float, iters: int = 20):
@@ -872,8 +791,8 @@ def phase_config3(mhz: float, iters: int = 20):
 
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
-    from sda_tpu_torch.utils.profiling import cuda_time, cuda_time_samples
-    from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
+    from sda_tpu_torch.tools._common import make_planar_secrets, mxu8_bound, reveal_check_slice
+    from sda_tpu_torch.utils.profiling import cuda_time, cuda_time_samples, device_breakdown
 
     c = CONFIG3
     engine = FederatedAggregation.packed_128bit(dimension=c["dimension"]).engine
@@ -922,12 +841,12 @@ def phase_config3(mhz: float, iters: int = 20):
                                                        lanes=lanes),
         samples=5, iters=10,
     )
-    bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz)
+    bound_ms, bound_by, parts, call_ops = mxu8_bound(plan, nbp, mhz)
 
     # the call's kernels apart (torch.profiler), and the split kernel's two
     # halves through cut plans at the same S (CUDA events): the K tiles
     # without randomness, the draws behind one K tile per chunk, neither
-    by_kernel = _device_ms_by_kernel(lambda i: m8.run_mxu8(plan, sec8, i, lanes=lanes))
+    by_kernel = device_breakdown(lambda i: m8.run_mxu8(plan, sec8, i, lanes=lanes))
     one_tile = sec8.view(n_chunks, rows, nbp)[:, : m8.KT].reshape(-1, nbp).contiguous()
     no_rand = dataclasses.replace(plan, rp=0, Kr=0, words_per_p=0, n_bytes=0)
     cut = {"K tiles, no randomness": (no_rand, sec8),
@@ -956,21 +875,15 @@ def phase_config3(mhz: float, iters: int = 20):
     }
 
 
-def _b2_kernels(by_kernel) -> dict | None:
+def _b2_kernels(by_kernel) -> dict:
     """The profiler's per-call device times of B2's memset and kernels."""
-    if by_kernel is None:
-        return None
     names = {"split kernel": "mxu8_split_kernel", "epilogue kernel": "mxu8_epilogue_kernel",
-             "memset": "emset"}
-    return {label: sum(ms for name, ms in by_kernel.items() if key in name)
-            for label, key in names.items()}
+             "memset": "Memset"}
+    return {label: by_kernel.get(key, 0.0) for label, key in names.items()}
 
 
 def _by_kernel_text(by_kernel) -> str:
-    got = _b2_kernels(by_kernel)
-    if got is None:
-        return "per-kernel times not measured (no device activity in the trace)"
-    return ", ".join(f"{label} {ms:.4f} ms" for label, ms in got.items())
+    return ", ".join(f"{label} {ms:.4f} ms" for label, ms in _b2_kernels(by_kernel).items())
 
 
 def phase_config4(mhz: float, iters: int = 5):
@@ -981,7 +894,7 @@ def phase_config4(mhz: float, iters: int = 5):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
-    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_cost,
+    from sda_tpu_torch.tools._common import (bound, make_planar_secrets, mxu8_bound, mxu8_cost,
                                              reveal_check_slice)
 
     c = CONFIG4
@@ -1033,13 +946,17 @@ def phase_config4(mhz: float, iters: int = 5):
     torch.cuda.synchronize()
     host_step_ms = (time.perf_counter() - t0) / iters * 1e3
     kernel_sum_ms = t_first.median_ms + (n_chunks - 1) * t_acc.median_ms + t_rec.median_ms
-    busy_ms, traced_wall_ms, activities = _trace(lambda: step(5000))
+    busy_ms, traced_wall_ms, names = _trace(lambda: step(5000))
+    activities = sum(names.values()) // 2
+    if names["mxu8_fused_kernel"] != 2 * (n_chunks + 1):
+        raise AssertionError(f"two traced config-4 steps recorded {names['mxu8_fused_kernel']} "
+                             f"B1/B3 launches, not {2 * (n_chunks + 1)}")
 
     rec_plan = engine._plan("reconstruct", engine.spec.share_count * L8, 1, chunk.device)
     acc_cost = mxu8_cost(plan, nbp, acc=True)
     step_costs = [mxu8_cost(plan, nbp)] + [acc_cost] * (n_chunks - 1) + [mxu8_cost(rec_plan, nbp)]
     step_bound_ms, step_bound_by = bound(step_costs)
-    bound_ms, bound_by, parts, call_ops = _mxu8_bound(plan, nbp, mhz, acc=True)
+    bound_ms, bound_by, parts, call_ops = mxu8_bound(plan, nbp, mhz, acc=True)
     return {
         "launches": counts["mxu8_acc"], "fused_launches": counts["mxu8_fused"], "timing": t_acc,
         "plain_ms": t_plain.median_ms, "max_abs_err": err,
@@ -1050,7 +967,7 @@ def phase_config4(mhz: float, iters: int = 5):
         "idle_share": max(0.0, 1 - kernel_sum_ms / host_step_ms),
         "traced_busy_ms": busy_ms, "traced_wall_ms": traced_wall_ms,
         "traced_activities": activities,
-        "traced_idle_share": None if busy_ms is None else 1 - busy_ms / traced_wall_ms,
+        "traced_idle_share": 1 - busy_ms / traced_wall_ms,
         "step_bound_ms": step_bound_ms, "step_bound_by": step_bound_by,
         "step_bytes": sum(b for b, _ in step_costs),
         "shape": f"P={n_chunks}x{p_chunk} dim={HEADLINE_DIM} rows={rows}/chunk NBP={nbp}",
@@ -1065,7 +982,7 @@ def phase_serving(mhz: float, iters: int = 20):
     from sda_tpu_torch.models import FederatedAggregation
     from sda_tpu_torch.ops import mxu8 as m8
     from sda_tpu_torch.utils.profiling import cuda_time
-    from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
+    from sda_tpu_torch.tools._common import make_planar_secrets, mxu8_bound, reveal_check_slice
 
     c = SERVING
     engine = FederatedAggregation.packed_64bit(dimension=c["dimension"]).engine
@@ -1102,7 +1019,7 @@ def phase_serving(mhz: float, iters: int = 20):
                                                         combined_randomness=combined),
             iters=iters, warmup=3,
         )
-        bound_ms, bound_by, parts, _ = _mxu8_bound(plan, nbp, mhz)
+        bound_ms, bound_by, parts, _ = mxu8_bound(plan, nbp, mhz)
         res[combined] = {"launches": counts["mxu8_fused"], "timing": t, "max_abs_err": err,
                          "bound_ms": bound_ms, "bound_by": bound_by, "parts": parts}
     res["shape"] = f"{n_jobs} jobs x P={P} dim={c['dimension']} NBP={nbp}"
@@ -1329,6 +1246,7 @@ def phase_chacha_reveal(mhz: float, iters: int = 5):
 
     S, D = CHACHA["seeds"], CHACHA["dimension"]
     p = find_special_prime_field(63, 8, 9)[0]
+    before = dict(chacha.expansions)
     rng = np.random.default_rng(70)
     seeds = [chacha.new_seed(128, rng) for _ in range(S)]
     seeds_i64 = [np.array(w, dtype=np.int64) for w in seeds]
@@ -1381,6 +1299,7 @@ def phase_chacha_reveal(mhz: float, iters: int = 5):
         "host_ms": sorted(h * 1e3 for h in host), "first_host_ms": first_s * 1e3,
         "bound_ms": bound_ms, "bound_by": bound_by, "int32_only_ms": int32_only_ms,
         "ops": ops, "bytes": nbytes, "shape": f"S={S} d={D} p=2^63-871",
+        "expansions": {name: n - before[name] for name, n in chacha.expansions.items()},
     }
 
 
@@ -1528,12 +1447,13 @@ def _philox_call_ops(plan) -> int:
     rand-sum mode that loop holds no shared-memory store (the carry-save
     sums stay in registers); in grouped mode it stores the call's limbs."""
     from sda_tpu_torch.ops.mxu_kernel import KERNEL_VARIANTS
+    from sda_tpu_torch.ops.sass import innermost_philox_loops, sass_listing
 
     if plan.rand_mode == "none":
         return 0
-    instrs = _sass_listing(*KERNEL_VARIANTS["mxu7_fused"])[f"MT{-(-plan.n * plan.mxu.L7 // 16)}"]
+    instrs = sass_listing(*KERNEL_VARIANTS["mxu7_fused"])[f"MT{-(-plan.n * plan.mxu.L7 // 16)}"]
     stores = plan.rand_mode == "grouped"
-    bodies = [b for b in _innermost_philox_loops(instrs)
+    bodies = [b for b in innermost_philox_loops(instrs)
               if any(op.startswith("STS") for _, op, _ in b) == stores]
     if len(bodies) != 1:
         raise AssertionError(f"found {len(bodies)} {plan.rand_mode}-mode Philox loops in B6's SASS")
@@ -1549,35 +1469,6 @@ def _mxu7_bound(plan, nbp: int, mhz: float):
              "philox": _int32_bound(calls * _philox_call_ops(plan), mhz)}
     bound = max(parts.values())
     return bound, "bytes" if parts["bytes"] == bound else "operations", parts
-
-
-def _mxu8_philox_call_ops(variant: str, mt: int) -> int:
-    """SASS instructions per Philox call of a built mxu8 variant's MT
-    instance: the body of the one innermost loop around the generator (the
-    draw loop after the K loop is not unrolled: one call per iteration)."""
-    bodies = _innermost_philox_loops(_sass_listing(*_variants()[variant])[f"MT{mt}"])
-    if len(bodies) != 1:
-        raise AssertionError(f"found {len(bodies)} Philox loops in {variant} MT{mt}'s SASS, not 1")
-    return len(bodies[0])
-
-
-def _mxu8_bound(plan, nbp: int, mhz: float, acc: bool = False):
-    """A B1/B2/B3 launch's least time: the largest of its bytes over the
-    HBM rate, its int8 operations over the tensor-core rate
-    (``tools._common.mxu8_cost``) and its Philox calls (one per lane, draw
-    and word group of every chunk) times the launched instance's SASS
-    instructions per call over the SMs' issue rate. Returns (ms, "bytes" or
-    "operations", the three parts in ms, instructions per call)."""
-    from sda_tpu_torch.ops.mxu8 import _variant, kernel_mt
-    from sda_tpu_torch.tools._common import mxu8_cost
-
-    nbytes, ops = mxu8_cost(plan, nbp, acc=acc)
-    calls = float(nbp) * plan.rp * -(-plan.words_per_p // 4) * plan.n_chunks
-    call_ops = _mxu8_philox_call_ops(_variant(plan, acc), kernel_mt(plan)) if calls else 0
-    parts = {"bytes": nbytes / PEAK_BYTES * 1e3, "int8": ops / PEAK_INT8 * 1e3,
-             "philox": _int32_bound(calls * call_ops, mhz)}
-    bound = max(parts.values())
-    return bound, "bytes" if parts["bytes"] == bound else "operations", parts, call_ops
 
 
 def _launch_report(plan, nbp: int, acc: bool = False, epilogue: bool = False) -> dict:
@@ -1949,31 +1840,33 @@ def _planar_participant_ops(L: int, slots: int, m: int) -> dict:
     draw arm m - slots times, and the participant loop's own instructions
     once."""
     from sda_tpu_torch.ops.pallas_kernels import KERNEL_VARIANTS
+    from sda_tpu_torch.ops.sass import PHILOX_MUL_RE, branch_target, loops, sass_listing, span
 
-    instrs = _sass_listing(*KERNEL_VARIANTS["planar_cios"])[f"L{L}"]
-    loops = _loops(instrs)
-    slot = [(h, t) for h, t in loops
-            if any(op.startswith("LDG") for _, op, _ in _span(instrs, h, t))
-            and any(PHILOX_MUL_RE.search(a) for _, _, a in _span(instrs, h, t))]
+    instrs = sass_listing(*KERNEL_VARIANTS["planar_cios"])[f"L{L}"]
+    found = loops(instrs)
+    slot = [(h, t) for h, t in found
+            if any(op.startswith("LDG") for _, op, _ in span(instrs, h, t))
+            and any(PHILOX_MUL_RE.search(a) for _, _, a in span(instrs, h, t))]
     slot = min(slot, key=lambda ht: ht[1] - ht[0])
-    part = min(((h, t) for h, t in loops if h < slot[0] and slot[1] < t),
+    part = min(((h, t) for h, t in found if h < slot[0] and slot[1] < t),
                key=lambda ht: ht[1] - ht[0])
-    body = _span(instrs, *slot)
+    body = span(instrs, *slot)
     # the slot test: the body's first forward branch; its fall-through arm
     # ends in an unconditional branch to the join
-    test = next(i for i, (a, op, args) in enumerate(body) if op == "BRA" and _target(args) > a)
-    target = _target(body[test][2])
+    test = next(i for i, (a, op, args) in enumerate(body)
+                if op == "BRA" and branch_target(args) > a)
+    target = branch_target(body[test][2])
     first = [x for x in body[test + 1:] if x[0] < target]
     if first[-1][1] != "BRA":
         raise AssertionError("B7's slot branch is not an if/else in the SASS")
-    join = _target(first[-1][2])
+    join = branch_target(first[-1][2])
     second = [x for x in body if target <= x[0] < join]
     load, draw = ((first, second) if any(op.startswith("LDG") for _, op, _ in first)
                   else (second, first))
     if not any(PHILOX_MUL_RE.search(a) for _, _, a in draw):
         raise AssertionError("B7's draw arm holds no Philox multiply in the SASS")
     common = [x for x in body if x not in first and x not in second]
-    outer = [x for x in _span(instrs, *part) if x not in body]
+    outer = [x for x in span(instrs, *part) if x not in body]
     pc = {name: _pipe_counts(seq) for name, seq in
           (("common", common), ("load", load), ("draw", draw), ("outer", outer))}
     return {key: m * pc["common"][key] + slots * pc["load"][key]
@@ -2257,7 +2150,7 @@ def phase_mesh(mesh, iters: int = 10):
     from sda_tpu_torch.ops.modmat import uniform_limbs
     from sda_tpu_torch.parallel import ShardedAggregationPipeline
     from sda_tpu_torch.tools._common import make_planar_secrets, reveal_check_slice
-    from sda_tpu_torch.utils.profiling import cuda_time
+    from sda_tpu_torch.utils.profiling import cuda_time, device_breakdown
 
     model = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM)
     engine = model.engine
@@ -2301,6 +2194,7 @@ def phase_mesh(mesh, iters: int = 10):
     _reveal7_check(engine, sec7, out, P, k, what="mesh gen-3")
     timed("gen3", lambda i: pipe.aggregate_mxu(sec7, i),
           lambda i: engine.aggregate_mxu_kernel(sec7, i, P, LANES))
+    res["gen3_kernels_ms"] = device_breakdown(lambda i: pipe.aggregate_mxu(sec7, i))
     res["gen3_by_op_ms"] = _device_ms_by_op(lambda i: pipe.aggregate_mxu(sec7, i))
     n7 = MESH["stream7_chunks"]
     out = counted(lambda: pipe.aggregate_mxu_streaming([lambda i: sec7] * n7, seed0=3),
@@ -2330,6 +2224,7 @@ def phase_mesh(mesh, iters: int = 10):
     reveal_check_slice(engine, sec8, out, P, what="mesh gen-4")
     timed("gen4", lambda i: pipe.aggregate_mxu8(sec8, i),
           lambda i: engine.aggregate_mxu8_kernel(sec8, i, P, LANES), n=20, warmup=3)
+    res["gen4_kernels_ms"] = device_breakdown(lambda i: pipe.aggregate_mxu8(sec8, i))
     res["gen4_by_op_ms"] = _device_ms_by_op(lambda i: pipe.aggregate_mxu8(sec8, i))
     n8 = CONFIG4["n_chunks"]
     out = counted(lambda: pipe.aggregate_mxu8_streaming([lambda i: sec8] * n8, seed0=1),
@@ -2487,33 +2382,275 @@ def _drivers_lines(r: dict, card: str, b3_ms: float) -> list[str]:
     ]
 
 
-def _device_ms_by_op(fn, iters: int = 5) -> dict | None:
-    """Per-call device time (ms) of ``fn`` by what launched it, from a
-    ``torch.profiler`` trace of ``iters`` calls after one untraced call:
-    each torch op's own kernels (its self device time), and each kernel no
-    torch op launched (the port's, launched through ctypes) by its bare
-    name. None when the trace holds no device activity."""
+def _plain_session_counts(fn, iters: int = 5) -> collections.Counter:
+    """Device activities by kernel name in a plain ``torch.profiler``
+    session of ``iters`` calls after one untraced call, with no throwaway
+    session before it and no check: how the whole script's profiles were
+    taken before ``profiling.profile_calls``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sda_tpu_torch.utils.profiling import kernel_name
 
     fn(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
-            fn(i + 1)
+            fn(3000 + i)
         torch.cuda.synchronize()
+    return collections.Counter(kernel_name(e.name) for e in prof.events()
+                               if e.device_type == DeviceType.CUDA
+                               and not getattr(e, "is_user_annotation", False))
+
+
+def phase_breakdown(iters: int = 5):
+    """``device_breakdown`` of the headline step (B1 x 1) and of the mesh's
+    gen-4 step (B1 x 2) at the end of the script: each kernel's count of
+    activities against the launch counters (``iters`` traced calls after
+    one untraced), the kernels' sums against the step's CUDA-event time
+    (per call, as the headline phase times it, and the card's own time in
+    windows queued behind a spin, which holds no host submission), and
+    beside it the count of a plain session with no throwaway before it."""
+    import torch
+    import torch.distributed as dist
+
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.parallel import ShardedAggregationPipeline, make_mesh
+    from sda_tpu_torch.tools._common import make_planar_secrets
+    from sda_tpu_torch.utils.profiling import (_ATTEMPTS, _breakdown_from_events, cuda_time,
+                                               cuda_time_samples, device_activities,
+                                               kernel_name, profile_calls)
+
+    engine = FederatedAggregation.packed_64bit(dimension=HEADLINE_DIM).engine
+    k, L8 = engine.spec.secret_count, engine.mxu8.L8
+    nbp = -(-engine.nb // LANES) * LANES
+    sec8 = make_planar_secrets(engine, 7, HEADLINE_P * k * L8, nbp)
+    pipe = ShardedAggregationPipeline(engine, make_mesh(MESH_AXES))
+    steps = {
+        "headline step (B1 x 1)": (lambda i: engine.aggregate_mxu8_kernel(
+            sec8, i, p_count=HEADLINE_P, lanes=LANES), 1),
+        "mesh gen-4 step (B1 x 2)": (lambda i: pipe.aggregate_mxu8(sec8, i), 2),
+    }
+    res = {}
+    for label, (fn, per_call) in steps.items():
+        events_t = cuda_time(fn, iters=10, warmup=2)
+        card_t = cuda_time_samples(fn, samples=5, iters=3)
+        plain = _plain_session_counts(fn, iters)
+        _reset_counts()
+        events = device_activities(profile_calls(fn, iters)[0])
+        launches = _counts()["mxu8_fused"]
+        counts = collections.Counter(kernel_name(name) for name, *_ in events)
+        sessions = (launches // per_call - 1) // iters  # profile_calls' attempts
+        if (launches != per_call * (1 + sessions * iters) or not 1 <= sessions <= _ATTEMPTS
+                or counts["mxu8_fused_kernel"] != per_call * iters):
+            raise AssertionError(f"{label}: B1 launched {launches} times, traced "
+                                 f"{counts['mxu8_fused_kernel']} times in {iters} calls")
+        by_kernel = _breakdown_from_events(events, iters)
+        total = sum(by_kernel.values())
+        if total < 0.9 * card_t.min_ms:
+            raise AssertionError(f"{label}: the kernels' sum {total:.4f} ms reads below 0.9 of "
+                                 f"the card's time for the step ({card_t.min_ms:.4f} ms at least)")
+        res[label] = {"events": events_t, "card": card_t, "launches": launches,
+                      "sessions": sessions, "counts": counts,
+                      "by_kernel_ms": by_kernel, "total_ms": total,
+                      "plain_b1": plain["mxu8_fused_kernel"], "plain_total": sum(plain.values()),
+                      "traced_total": sum(counts.values())}
+    dist.destroy_process_group()
+    del sec8, pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def _breakdown_lines(r: dict, card: str, iters: int = 5) -> list[str]:
+    lines = []
+    for label, b in r.items():
+        t, tc = b["events"], b["card"]
+        b1 = b["by_kernel_ms"]["mxu8_fused_kernel"]
+        top = ", ".join(f"{name} {ms:.4f}" for name, ms in list(b["by_kernel_ms"].items())[:6])
+        lines.append(
+            f"breakdown: {label} on {card}: device_breakdown over {iters} calls (after a "
+            f"throwaway session; {b['sessions']} traced session(s) to a whole trace): B1 launch "
+            f"counter {b['launches']} in {1 + b['sessions'] * iters} calls, traced "
+            f"mxu8_fused_kernel {b['counts']['mxu8_fused_kernel']} in {iters} (every kernel's "
+            f"count a multiple of {iters}: {dict(b['counts'])}); per call (ms) {top}; B1 "
+            f"{b1:.4f} ms, all kernels {b['total_ms']:.4f} ms against the step's events median "
+            f"{t.median_ms:.4f} ms (min {t.min_ms:.4f}, max {t.max_ms:.4f}) and the card's own "
+            f"time (queued windows) median {tc.median_ms:.4f} ms (min {tc.min_ms:.4f}, max "
+            f"{tc.max_ms:.4f}; B1 {'within' if tc.min_ms <= b1 <= tc.max_ms else 'outside'} "
+            f"it); a plain session (no throwaway before it) recorded B1 {b['plain_b1']} of "
+            f"{b['counts']['mxu8_fused_kernel']} times and {b['plain_total']} of "
+            f"{b['traced_total']} device activities")
+    return lines
+
+
+def phase_roofline(headline: dict):
+    """``sda_tpu_torch.tools.bench_roofline.measure()`` at the headline's
+    width with the breakdown: the full pipeline (B1 with fused
+    reconstruction) and combine-only (B1) launches, each reveal checked,
+    timed and held to the card's bound; the launches counted; the full
+    pipeline's bound equal to the headline's."""
+    from sda_tpu_torch.tools import bench_roofline as br
+    from sda_tpu_torch.utils.profiling import _ATTEMPTS
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    art = br.measure(HEADLINE_DIM, HEADLINE_P, LANES, breakdown=True)
+    counts = _counts()
+    # each launch: its reveal call and WARMUP + ITERS timed calls; the
+    # combine-only check adds one reconstruction; the breakdown one
+    # untraced call and BREAKDOWN_ITERS traced ones in each of its sessions
+    base = 2 * (1 + br.WARMUP + br.ITERS) + 1 + 1
+    sessions = (counts["mxu8_fused"] - base) // br.BREAKDOWN_ITERS
+    want = _only(mxu8_fused=base + sessions * br.BREAKDOWN_ITERS)
+    if counts != want or not 1 <= sessions <= _ATTEMPTS:
+        raise AssertionError(f"the roofline tool launched {counts}, not {want} with 1 to "
+                             f"{_ATTEMPTS} traced sessions")
+    full = art["full_pipeline"]
+    if (full["bound_ms"], full["bound_by"]) != (headline["bound_ms"], headline["bound_by"]):
+        raise AssertionError(f"the roofline tool's bound {full['bound_ms']} ms "
+                             f"({full['bound_by']}) != the headline's {headline['bound_ms']} ms "
+                             f"({headline['bound_by']})")
+    path = br.write_artifact("ROOFLINE", art)
+    return {"artifact": art, "launches": counts["mxu8_fused"], "sessions": sessions,
+            "path": path, "s": time.perf_counter() - t0}
+
+
+def phase_chacha_native():
+    """``chacha.expand_masks`` on the card's host: which route it took, and
+    the native expansion against numpy's (``chacha._expand_masks_numpy``),
+    bit-equal, at 64 seeds x 1,000,002 and p = 2^63 - 871, and at 4 seeds x
+    4,096 and p = 2^62 + 1, where about 1/4 of the draws are rejected (the
+    numpy route's scalar path), each on the host clock."""
+    import numpy as np
+
+    from sda_tpu_torch import chacha
+
+    rng = np.random.default_rng(71)
+    res = {}
+    for label, (n_seeds, dim, p) in CHACHA_NATIVE.items():
+        seeds = [chacha.new_seed(128, rng) for _ in range(n_seeds)]
+        before = dict(chacha.expansions)
+        t0 = time.perf_counter()
+        got = chacha.expand_masks(seeds, dim, p)
+        t_route = time.perf_counter() - t0
+        route = [name for name in before if chacha.expansions[name] != before[name]]
+        t0 = time.perf_counter()
+        want = chacha._expand_masks_numpy(seeds, dim, p)
+        t_numpy = time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            raise AssertionError(f"chacha expand_masks ({route}) != numpy at {label}")
+        hits = int(np.count_nonzero(chacha._raw_draws(seeds[:1], dim)
+                                    >= np.uint64((1 << 64) - 1 - ((1 << 64) - 1) % p)))
+        res[label] = {"route": route, "ms": t_route * 1e3, "numpy_ms": t_numpy * 1e3,
+                      "shape": f"{n_seeds} x {dim}", "first_seed_rejections": hits}
+    return res
+
+
+def phase_example():
+    """``examples/bulk_aggregation_torch.py``'s ``main`` on the card at its
+    defaults: its exit code must be 0 (the reveal equals the modular sum);
+    its output lines, and that it launched no kernel."""
+    import contextlib
+    import importlib.util
+    import io
+
+    path = Path(__file__).resolve().parent / "examples" / "bulk_aggregation_torch.py"
+    spec = importlib.util.spec_from_file_location("bulk_aggregation_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = _counted(lambda: example.main(["--device", "cuda"]), "the bulk example")
+    lines = (err.getvalue() + out.getvalue()).strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"the bulk example exited {rc}: {lines}")
+    return lines
+
+
+def phase_scaling_artifact(drivers: dict, card: str, name: str):
+    """``sda_tpu_torch.tools.make_scaling_artifact.compose`` on the
+    ``drivers:`` phase's own config-5 row (no second run of the loop),
+    written to ``build/measurements/SCALING.json``."""
+    from sda_tpu_torch.tools import make_scaling_artifact as msa
+    from sda_tpu_torch.tools._common import write_artifact
+
+    real = {"platform": "gpu", "device": name, "card": card,
+            "streaming_sharded": drivers["config5"]["row"]}
+    art = msa.compose(real, None)
+    return art, write_artifact("SCALING", art)
+
+
+def _roofline_lines(rf: dict, h: dict, card: str, root: Path) -> list[str]:
+    art = rf["artifact"]
+    full, comb, t = art["full_pipeline"], art["combine_only"], h["timing"]
+    parts = full["bound_parts_ms"]
+    within = t.min_ms <= full["seconds"] * 1e3 <= t.max_ms
+    return [
+        f"roofline: bench_roofline.measure() {HEADLINE_P} x {HEADLINE_DIM}, lanes {LANES}, "
+        f"--breakdown, on {card} ({full['card']} ceilings): full pipeline (B1 with fused "
+        f"reconstruction) median {full['seconds'] * 1e3:.4f} ms (min {full['min_s'] * 1e3:.4f}, "
+        f"max {full['max_s'] * 1e3:.4f}), the headline phase's {t.median_ms:.4f} ms (min "
+        f"{t.min_ms:.4f}, max {t.max_ms:.4f}): {'within' if within else 'outside'} its "
+        f"min-max; bound {full['bound_ms']:.4f} ms ({full['bound_by']}: bytes "
+        f"{parts['bytes']:.4f}, int8 {parts['int8']:.4f}, Philox issue {parts['philox']:.4f}), "
+        f"the headline's {h['bound_ms']:.4f} ms, {full['fraction_of_sol']:.4f} of it; "
+        f"combine-only (B1) median {comb['seconds'] * 1e3:.4f} ms (min "
+        f"{comb['min_s'] * 1e3:.4f}, max {comb['max_s'] * 1e3:.4f}), bound "
+        f"{comb['bound_ms']:.4f} ms ({comb['bound_by']}), {comb['fraction_of_sol']:.4f} of it; "
+        f"reveals exact",
+        "roofline: breakdown (ms per call) "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in art["breakdown_ms"].items())
+        + f"; B1 launches {rf['launches']} ({rf['sessions']} traced session(s)); "
+          f"{rf['s']:.1f} s; wrote "
+          f"{rf['path'].relative_to(root)}",
+    ]
+
+
+def _chacha_native_line(cn: dict, cr: dict, card: str) -> str:
+    cases = "; ".join(
+        f"{label}, {r['shape']}: route {'+'.join(r['route'])} {r['ms']:.4f} ms, numpy "
+        f"{r['numpy_ms']:.4f} ms ({r['numpy_ms'] / r['ms']:.2f}x), bit-equal; first seed's "
+        f"rejected draws {r['first_seed_rejections']}" for label, r in cn.items())
+    return (f"chacha native: expand_masks on the host of {card}: {cases}; the chacha reveal's "
+            f"combine on the host clock {cr['host_ms'][1]:.4f} ms (its expand_masks routes "
+            f"{cr['expansions']}, bad seeds {cr['bad']})")
+
+
+def _scaling_line(art: dict, path: Path, root: Path) -> str:
+    pj = art["projected"]
+    four, sens = pj["at_4_cards"], pj["nvlink_bandwidth_sensitivity"]
+    return (
+        f"scaling artifact: make_scaling_artifact.compose on the drivers: row "
+        f"({pj['measured_chunk_s'] * 1e3:.4f} ms a chunk, local finish "
+        f"{pj['finish_local_s'] * 1e3:.4f} ms, all-reduce payload "
+        f"{pj['allreduce_payload_mb_per_card']:.6f} MB a card): projected {pj['cards']} cards "
+        f"(100,000 x 1,000,002, {pj['chunks_per_card']} chunks a card, "
+        f"{pj['assumptions']['nvlink_effective_gbps_per_card']:.0f} GB/s effective NVLink a "
+        f"card, assumed): compute {pj['compute_s']:.4f} s, finish {pj['finish_s'] * 1e3:.4f} ms "
+        f"(all-reduce {pj['allreduce_s'] * 1e3:.4f} ms), projected efficiency "
+        f"{pj['weak_scaling_efficiency']:.4f}, {pj['aggregations_per_s']:.0f} aggregations/s "
+        f"projected; efficiency at "
+        + ", ".join(f"{g}: {v['weak_scaling_efficiency']:.4f}" for g, v in sens.items())
+        + f" (projected); projected 4 cards: {four['chunks_per_card']} chunks a card, finish "
+          f"{four['finish_s'] * 1e3:.4f} ms, efficiency {four['weak_scaling_efficiency']:.4f}; "
+          f"wrote {path.relative_to(root)}")
+
+
+def _device_ms_by_op(fn, iters: int = 5) -> dict:
+    """Per-call device time (ms) of the kernels each torch op of ``fn``
+    launched (its self device time), from the checked trace of
+    ``profiling.profile_calls``; what ``device_breakdown`` cannot give. The
+    port's kernels, launched through ctypes, belong to no torch op."""
+    from torch.autograd import DeviceType
+
+    from sda_tpu_torch.utils.profiling import profile_calls
+
     out = collections.Counter()
-    for e in prof.key_averages():
+    for e in profile_calls(fn, iters)[0].key_averages():
         if e.device_type == DeviceType.CPU:
             out[e.key] += getattr(e, "self_device_time_total", 0) / 1e3 / iters
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "at::native" not in e.name \
-                and not e.name.startswith(("Memcpy", "Memset")):
-            plain = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-            out[re.split(r"[<(]", plain, maxsplit=1)[0].split("::")[-1]] += \
-                (e.time_range.end - e.time_range.start) / 1e3 / iters
-    return {name: ms for name, ms in out.most_common() if ms > 0} or None
+    return {name: ms for name, ms in out.most_common() if ms > 0}
 
 
 def _mesh_lines(r: dict, card: str) -> list[str]:
@@ -2522,11 +2659,8 @@ def _mesh_lines(r: dict, card: str) -> list[str]:
         return (f"mesh {a.median_ms:.4f} ms (min {a.min_ms:.4f}, max {a.max_ms:.4f}), engine "
                 f"{b.median_ms:.4f} ms (min {b.min_ms:.4f}, max {b.max_ms:.4f})")
 
-    def by_op(name):
-        by = r[name]
-        if by is None:
-            return "not measured (no device activity in the trace)"
-        return ", ".join(f"{n} {ms:.4f}" for n, ms in by.items())
+    def listed(name):
+        return ", ".join(f"{n} {ms:.4f}" for n, ms in r[name].items())
 
     deg = ", ".join(f"without clerk {d} {t.median_ms:.4f} ms" for d, t in
                     zip(MESH["drops"], r["degraded"]))
@@ -2546,8 +2680,9 @@ def _mesh_lines(r: dict, card: str) -> list[str]:
         f"aggregate_mxu8_kernel_streaming; reveals exact",
         f"mesh: degraded finishes (B1 x 1 each, bit-equal to the full finish): {deg}; the "
         f"engine's reconstruct_planar8 {r['full_finish'].median_ms:.4f} ms",
-        f"mesh: device time per step by op (torch.profiler, ms): gen-4 step "
-        f"{by_op('gen4_by_op_ms')}; gen-3 step {by_op('gen3_by_op_ms')}",
+        f"mesh: device time per step (torch.profiler, ms), by kernel (device_breakdown): gen-4 "
+        f"step {listed('gen4_kernels_ms')}; gen-3 step {listed('gen3_kernels_ms')}; by torch op: "
+        f"gen-4 step {listed('gen4_by_op_ms')}; gen-3 step {listed('gen3_by_op_ms')}",
     ]
 
 
@@ -2595,9 +2730,11 @@ def main() -> int:
                                      + ", ".join(diff))
     from sda_tpu_torch.ops.chacha_kernel import KERNEL_VARIANTS as CHACHA_VARIANTS
 
-    sass = {**_sass_listing(*CHACHA_VARIANTS["chacha"]), **_sass_listing(*variants["planar_cios"]),
-            "MT5": _sass_listing(*variants["mxu7_fused"])["MT5"],
-            "mxu8 MT4": _sass_listing(*variants["mxu8_fused"])["MT4"]}  # the headline's
+    from sda_tpu_torch.ops.sass import sass_listing
+
+    sass = {**sass_listing(*CHACHA_VARIANTS["chacha"]), **sass_listing(*variants["planar_cios"]),
+            "MT5": sass_listing(*variants["mxu7_fused"])["MT5"],
+            "mxu8 MT4": sass_listing(*variants["mxu8_fused"])["MT4"]}  # the headline's
     for kernel, instrs in sass.items():
         top = ", ".join(f"{op} {n}" for op, n in _opcode_counts(instrs).most_common(6))
         print(f"build: sass {kernel}: {len(instrs)} instructions ({top})", flush=True)
@@ -2676,14 +2813,10 @@ def main() -> int:
           f"first chunk (B1) {c4['first_ms']:.4f} ms, reconstruction {c4['rec_ms']:.4f} ms; "
           f"back-to-back step {c4['host_step_ms']:.4f} ms on the host clock, kernels "
           f"{c4['kernel_sum_ms']:.4f} ms, device idle share {c4['idle_share']:.4f}", flush=True)
-    if c4["traced_busy_ms"] is None:
-        print("config 4: torch.profiler trace of one step: no device activity recorded "
-              "(traced idle share not measured)", flush=True)
-    else:
-        print(f"config 4: torch.profiler trace of one step: device busy "
-              f"{c4['traced_busy_ms']:.4f} ms of {c4['traced_wall_ms']:.4f} ms on the host clock "
-              f"({c4['traced_activities']} device activities), device idle share "
-              f"{c4['traced_idle_share']:.4f}", flush=True)
+    print(f"config 4: torch.profiler trace of two steps (profile_calls), per step: device busy "
+          f"{c4['traced_busy_ms']:.4f} ms of {c4['traced_wall_ms']:.4f} ms on the host clock "
+          f"({c4['traced_activities']} device activities), device idle share "
+          f"{c4['traced_idle_share']:.4f}", flush=True)
 
     sv = phase_serving(mhz)
     for combined in (False, True):
@@ -2865,6 +2998,18 @@ def main() -> int:
         print(line, flush=True)
     dl = dr["launches"]
 
+    bd = phase_breakdown()
+    for line in _breakdown_lines(bd, card):
+        print(line, flush=True)
+    rf = phase_roofline(h)
+    for line in _roofline_lines(rf, h, card, root):
+        print(line, flush=True)
+    full, comb = rf["artifact"]["full_pipeline"], rf["artifact"]["combine_only"]
+    print(_chacha_native_line(phase_chacha_native(), cr, card), flush=True)
+    print(f"example: examples/bulk_aggregation_torch.py --device cuda at its defaults on {card} "
+          f"(torch CIOS, no kernel launched): exit 0; " + " | ".join(phase_example()), flush=True)
+    print(_scaling_line(*phase_scaling_artifact(dr, card, name), root), flush=True)
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -2910,6 +3055,12 @@ def main() -> int:
                                  "weak_step": dl["the weak-scaling step"]["mxu8_fused"]},
             "config5_finish_ms": dr["config5"]["finish"].median_ms,
             "weak_step_ms": dr["weak"]["step"].median_ms,
+            "breakdown_launches": {label: b["launches"] for label, b in bd.items()},
+            "breakdown_ms": {label: b["by_kernel_ms"]["mxu8_fused_kernel"]
+                             for label, b in bd.items()},
+            "roofline_launches": rf["launches"],
+            "roofline_full_ms": full["seconds"] * 1e3,
+            "roofline_combine_only_ms": comb["seconds"] * 1e3,
         },
         {
             "name": "mxu8_chunked",

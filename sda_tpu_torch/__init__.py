@@ -11,7 +11,8 @@ Layer map (bottom-up):
 - :mod:`sda_tpu_torch.ntt`      number-theoretic transforms and their matrices
 - :mod:`sda_tpu_torch.sharing`  additive & packed-Shamir schemes and their
   device spec
-- :mod:`sda_tpu_torch.chacha`   rand-0.3 ChaCha streams (host oracle, numpy)
+- :mod:`sda_tpu_torch.chacha`   rand-0.3 ChaCha streams (host oracle: the
+  native library's expansion, numpy where it cannot run)
 - :mod:`sda_tpu_torch.ops`      limb arithmetic, the CIOS and 7-bit
   modmats, the fused kernels of generations 1, 3 and 4 and the ChaCha mask
   kernels (CUDA C++ under ``ops/csrc``)
@@ -35,7 +36,7 @@ Layer map (bottom-up):
   multi-device dryrun
 - :mod:`sda_tpu_torch.tools`    the measurement tools (the floor probes of
   :mod:`sda_tpu_torch.ops.probes`, the combine crossover, the mesh scaling
-  benchmark)
+  benchmark and its artifact, the headline roofline)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

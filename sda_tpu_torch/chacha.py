@@ -12,15 +12,19 @@ side. To interoperate bit for bit with the upstream protocol it reproduces:
   ``zone = u64::MAX - u64::MAX % m`` then ``v % m``.
 
 In the port this module is the host oracle of the device expansion
-(:mod:`sda_tpu_torch.ops.chacha_kernel`) and its exact path for the rare
-seeds whose streams hit a rejection. It is numpy only: unlike the
-reference it does not load the host plane's native library
-(``native/libsda_native.so``), which belongs to the host plane, not to the
-port; the device fix-up only ever expands the few rejected seeds here.
+(:mod:`sda_tpu_torch.ops.chacha_kernel`), the host fold of the maskers and
+the exact path for the rare seeds whose streams hit a rejection.
+:func:`expand_masks` expands through the native library's
+``sda_chacha_expand_masks`` (``native/chacha.cpp``, built from the sources
+at its first call by :func:`sda_tpu_torch.utils.varint.native_library`,
+never at import) under the reference's guards, and through numpy where the
+library cannot be built or the guards refuse; ``expansions`` counts the
+calls each route served.
 """
 
 from __future__ import annotations
 
+import ctypes
 import secrets as _secrets
 
 import numpy as np
@@ -31,12 +35,16 @@ __all__ = [
     "new_seed",
     "expand_masks",
     "expand_masks_noskip",
+    "expansions",
 ]
 
 _U32 = np.uint32
 _U64_MAX = (1 << 64) - 1
 _CONSTANTS = np.array([0x61707865, 0x3320646E, 0x79622D32, 0x6B206574], dtype=_U32)
 _ROUNDS = 20
+
+# calls of expand_masks served by each route
+expansions = {"native": 0, "numpy": 0}
 
 
 def _rotl(x, k):
@@ -156,15 +164,63 @@ def expand_masks_noskip(seeds, dimension: int, modulus: int) -> np.ndarray:
     return (_raw_draws(seeds, dimension) % np.uint64(modulus)).astype(np.int64)
 
 
+def _native_expand():
+    """``sda_chacha_expand_masks`` from the native library with its
+    argument types declared, or ``None`` where the library cannot be built
+    or loaded or lacks it."""
+    from sda_tpu_torch.utils.varint import native_library
+
+    lib = native_library()
+    fn = getattr(lib, "sda_chacha_expand_masks", None) if lib is not None else None
+    if fn is not None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_size_t,
+            ctypes.c_size_t,
+            ctypes.c_size_t,
+            ctypes.c_uint64,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+    return fn
+
+
 def expand_masks(seeds, dimension: int, modulus: int) -> np.ndarray:
     """Expand ``[S]`` seeds (each a u32 word list) into ``[S, dimension]`` masks.
 
-    Vectorised numpy over seeds. Each mask element is one ``gen_range(0, m)``
-    draw (two u32 words), matching the reference's sequential expansion.
-    A seed whose draws hit a rejection (probability ~m/2**64 per draw) is
-    redone on the exact scalar path; the others keep the vectorised draws.
+    Each mask element is one ``gen_range(0, m)`` draw (two u32 words),
+    matching the reference's sequential expansion. The native expansion
+    runs when there are seeds, ``dimension > 0``, ``0 < modulus < 2^63``
+    and every seed has the same number of words, and returns when it
+    reports success; it handles rejections inline. Otherwise numpy runs,
+    vectorised over seeds: a seed whose draws hit a rejection (probability
+    ~m/2**64 per draw) is redone on the exact scalar path, the others keep
+    the vectorised draws.
     """
     seeds = list(seeds)
+    s = len(seeds)
+    if s and dimension > 0 and 0 < modulus < (1 << 63) and len({len(w) for w in seeds}) == 1:
+        native = _native_expand()
+        if native is not None:
+            words = np.ascontiguousarray(np.asarray(seeds, dtype=np.uint32))
+            out = np.empty((s, dimension), dtype=np.int64)
+            rc = native(
+                words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                words.shape[0],
+                words.shape[1],
+                dimension,
+                modulus,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            )
+            if rc == 0:
+                expansions["native"] += 1
+                return out
+    expansions["numpy"] += 1
+    return _expand_masks_numpy(seeds, dimension, modulus)
+
+
+def _expand_masks_numpy(seeds, dimension: int, modulus: int) -> np.ndarray:
+    """:func:`expand_masks` through numpy alone."""
     s = len(seeds)
     if s == 0 or dimension == 0:
         return np.zeros((s, dimension), dtype=np.int64)

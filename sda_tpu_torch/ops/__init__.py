@@ -22,4 +22,6 @@
 - :mod:`sda_tpu_torch.ops.cuda_build` / :mod:`sda_tpu_torch.ops.native_build`
   — build and load the CUDA kernels and the host-side native library at
   first use.
+- :mod:`sda_tpu_torch.ops.sass` — the built kernels' SASS and the loops
+  the integer bounds count.
 """

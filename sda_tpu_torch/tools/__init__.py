@@ -12,6 +12,11 @@ sda_tpu_torch.tools.<name>`` and writing ``build/measurements/<NAME>.json``:
 
 :mod:`~sda_tpu_torch.tools.bench_scaling` (the mesh's weak scaling and the
 config-5 chunk-loop/finish split) prints its JSON and writes no artifact.
+:mod:`~sda_tpu_torch.tools.bench_roofline` (the headline's full pipeline
+and combine-only launches against the card's ceilings, with a per-kernel
+breakdown) writes ``ROOFLINE.json``;
+:mod:`~sda_tpu_torch.tools.make_scaling_artifact` (config 5's measured
+split and a projection onto one NVLink node) writes ``SCALING.json``.
 
 Each measuring function takes its shapes as arguments and a ``device``
 (the card unless given ``"cpu"``); on the CPU it runs every check and

@@ -1,6 +1,7 @@
 """What the measurement tools and ``chip_smoke.py`` share: synthetic planar
-operands, the reveal check, the byte-limb kernel's cost model and bound,
-device-or-nothing timing, and the artifact writer.
+operands, the reveal check, the byte-limb kernel's cost model and bounds
+(bytes and int8 operations; with the Philox issue term counted from the
+built kernel's SASS), device-or-nothing timing, and the artifact writer.
 
 Port of the ``bench.py`` internals the reference's tools import
 (``_make_planar_secrets``, ``_reveal_check_slice``, ``_mxu8_model``).
@@ -14,13 +15,21 @@ from pathlib import Path
 import torch
 
 from sda_tpu_torch.ops.probes import xor_words
-from sda_tpu_torch.utils.profiling import WARMUP_CALLS, card_line, cuda_time_samples, roofline
+from sda_tpu_torch.utils.profiling import (
+    H100_SXM,
+    WARMUP_CALLS,
+    card_line,
+    cuda_time_samples,
+    roofline,
+)
 
 __all__ = [
     "make_planar_secrets",
     "reveal_check_slice",
     "mxu8_cost",
     "bound",
+    "mxu8_bound",
+    "mxu8_philox_calls",
     "timed",
     "timed_calls",
     "seconds",
@@ -91,6 +100,44 @@ def bound(costs):
     rep = roofline(1.0, hbm_bytes=sum(b for b, _ in costs), int8_ops=sum(o for _, o in costs))
     by = "bytes" if rep["binding_resource"] == "hbm" else "operations"
     return rep["speed_of_light_s"] * 1e3, by
+
+
+def mxu8_philox_calls(plan, nbp: int) -> float:
+    """Philox calls of one byte-limb launch: one per lane, randomness draw
+    and group of four words, in every chunk."""
+    return float(nbp) * plan.rp * -(-plan.words_per_p // 4) * plan.n_chunks
+
+
+def mxu8_philox_call_ops(variant: str, mt: int) -> int:
+    """SASS instructions per Philox call of a built mxu8 variant's MT
+    instance: the body of the one innermost loop around the generator (the
+    draw loop after the K loop is not unrolled: one call per iteration)."""
+    from sda_tpu_torch.ops.mxu8 import KERNEL_VARIANTS
+    from sda_tpu_torch.ops.sass import innermost_philox_loops, sass_listing
+
+    bodies = innermost_philox_loops(sass_listing(*KERNEL_VARIANTS[variant])[f"MT{mt}"])
+    if len(bodies) != 1:
+        raise AssertionError(f"found {len(bodies)} Philox loops in {variant} MT{mt}'s SASS, not 1")
+    return len(bodies[0])
+
+
+def mxu8_bound(plan, nbp: int, mhz: float, acc: bool = False, card=H100_SXM):
+    """A B1/B2/B3 launch's least time on the card: the largest of its bytes
+    over the HBM rate, its int8 operations over the tensor-core rate
+    (:func:`mxu8_cost`) and its Philox calls (one per lane, draw and word
+    group of every chunk) times the launched instance's SASS instructions
+    per call over the SMs' issue rate at ``mhz``. Needs the built kernel.
+    Returns (ms, "bytes" or "operations", the three parts in ms,
+    instructions per call)."""
+    from sda_tpu_torch.ops.mxu8 import _variant, kernel_mt
+
+    nbytes, ops = mxu8_cost(plan, nbp, acc=acc)
+    calls = mxu8_philox_calls(plan, nbp)
+    call_ops = mxu8_philox_call_ops(_variant(plan, acc), kernel_mt(plan)) if calls else 0
+    parts = {"bytes": nbytes / card.hbm_bytes_per_s * 1e3, "int8": ops / card.int8_ops_per_s * 1e3,
+             "philox": calls * call_ops / (card.sms * card.issue_lanes * mhz * 1e6) * 1e3}
+    bound_ms = max(parts.values())
+    return bound_ms, "bytes" if parts["bytes"] == bound_ms else "operations", parts, call_ops
 
 
 def timed(fn, device: torch.device, samples: int, iters: int):

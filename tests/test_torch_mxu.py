@@ -437,6 +437,7 @@ def test_philox_call_ops_read_the_mode_s_generator_loop(monkeypatch):
     from types import SimpleNamespace
 
     import chip_smoke
+    from sda_tpu_torch.ops import sass
 
     mul = " R4, R2, -0x2daee0ad, RZ"
     instrs = [
@@ -456,7 +457,7 @@ def test_philox_call_ops_read_the_mode_s_generator_loop(monkeypatch):
         (0xd0, "ISETP.GE.AND", " P1, PT, R7, R9, PT"),
         (0xe0, "BRA", " 0xa0"),
     ]
-    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT5": instrs})
+    monkeypatch.setattr(sass, "sass_listing", lambda *a: {"MT5": instrs})
 
     def plan(mode):
         return SimpleNamespace(rand_mode=mode, n=8, mxu=SimpleNamespace(L7=9))
@@ -465,6 +466,6 @@ def test_philox_call_ops_read_the_mode_s_generator_loop(monkeypatch):
     assert chip_smoke._philox_call_ops(plan("grouped")) == 5
     assert chip_smoke._philox_call_ops(plan("none")) == 0
     twice = instrs + [(0xf0, "IMAD.WIDE.U32", mul), (0x100, "BRA", " 0xf0")]
-    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT5": twice})
+    monkeypatch.setattr(sass, "sass_listing", lambda *a: {"MT5": twice})
     with pytest.raises(AssertionError, match="found 2 sum-mode Philox loops"):
         chip_smoke._philox_call_ops(plan("sum"))

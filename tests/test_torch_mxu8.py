@@ -276,9 +276,11 @@ def test_kernel_params_follow_the_kernels_field_order():
 
 
 def test_philox_call_ops_read_the_one_draw_loop(monkeypatch):
-    """chip_smoke's Philox issue term for B1-B3 counts the body of the one
-    innermost loop around the generator, and refuses a listing with two."""
-    import chip_smoke
+    """The Philox issue term for B1-B3 (``tools._common``, which
+    chip_smoke's bounds use) counts the body of the one innermost loop
+    around the generator, and refuses a listing with two."""
+    from sda_tpu_torch.ops import sass
+    from sda_tpu_torch.tools import _common
 
     mul = " R4, R2, -0x2daee0ad, RZ"
     instrs = [
@@ -293,9 +295,9 @@ def test_philox_call_ops_read_the_one_draw_loop(monkeypatch):
         (0x80, "ISETP.GE.AND", " P0, PT, R6, R9, PT"),
         (0x90, "BRA", " 0x40"),
     ]
-    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT4": instrs})
-    assert chip_smoke._mxu8_philox_call_ops("mxu8_fused", 4) == 6
+    monkeypatch.setattr(sass, "sass_listing", lambda *a: {"MT4": instrs})
+    assert _common.mxu8_philox_call_ops("mxu8_fused", 4) == 6
     twice = instrs + [(0xa0, "IMAD.WIDE.U32", mul), (0xb0, "BRA", " 0xa0")]
-    monkeypatch.setattr(chip_smoke, "_sass_listing", lambda *a: {"MT4": twice})
+    monkeypatch.setattr(sass, "sass_listing", lambda *a: {"MT4": twice})
     with pytest.raises(AssertionError, match="found 2 Philox loops"):
-        chip_smoke._mxu8_philox_call_ops("mxu8_fused", 4)
+        _common.mxu8_philox_call_ops("mxu8_fused", 4)
