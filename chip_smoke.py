@@ -159,31 +159,49 @@ Phases, each of which raises on failure:
     the reveal checked on the first 512 lanes, the loop timed 3 times and
     the finish 5 with CUDA events beside their bounds; and the weak-scaling
     row n = 1 (768 x 1,000,002, B1 x 2 a step), reveal-checked and timed;
-21. breakdown: ``utils.profiling.device_breakdown`` of the headline step
+21. crypto: the port's sealed boxes and Ed25519
+    (``sda_tpu_torch/native/nacl.cpp``, built on this host with
+    ``-march=native``) against RFC 7748 § 6.1, RFC 8032 § 7.1 tests 1-3
+    and vectors libsodium made (``SODIUM_BOX``, ``SODIUM_SIGS``), mutated
+    signatures refused; the host time per call of X25519, ``seal`` and
+    ``seal_open`` (1 KB and one clerk's 1,000,002 / 3 values),
+    ``sign_detached`` and ``verify_detached``, and what
+    ``ctypes.util.find_library('sodium')`` finds;
+22. full loop: ``bench.py:_bench_system_e2e``'s ``run_loop`` on the port,
+    ``serve_background`` over a jsondir store: pass A, 1,000 participants
+    x 1,002 under ChaCha masking (8 workers), whose reveal is exact,
+    launches B5 once and B4 never, after all 8 clerk jobs took the fused
+    native open + combine (``client.combine_routes``); pass B, 8 x
+    1,000,002, no masking, every client on the bulk route (4 workers): the
+    reveal exact, the participants' ``share_mxu`` and the recipient's
+    reconstruction on the card; build, ingest, snapshot, drain and reveal
+    on the host clock, the wire's MB; then B5 alone at pass A's reveal
+    shape;
+23. cli: the README walkthrough as processes (``server_cli httpd`` and 23
+    ``sda_tpu_torch.cli`` calls), reveal ``0 2 2 4 4 6 6 8 8 10``;
+24. tool combine crossover: ``tools.measure_combine_crossover.measure()``
+    on the card, the fused native route against the streamed device route
+    at the tool's four shapes, written to
+    ``build/measurements/CROSSOVER.json``;
+25. breakdown: ``utils.profiling.device_breakdown`` of the headline step
     (B1 x 1) and of the mesh's gen-4 step in a world of one (B1 x 2), at
     the end of the script: each kernel's count of device activities a
     multiple of the calls traced and B1's equal to the launch counters',
     the kernels' sum against the step's CUDA-event time, and beside it
     what a plain profiler session (no throwaway session before it) recorded;
-22. roofline: ``sda_tpu_torch.tools.bench_roofline.measure()`` at the
+26. roofline: ``sda_tpu_torch.tools.bench_roofline.measure()`` at the
     headline's width with the breakdown: the full pipeline and
     combine-only B1 launches, reveals checked, counted, timed beside the
     headline phase, the full pipeline's bound equal to the headline's;
-23. chacha native: ``chacha.expand_masks``'s route on the card's host and
+27. chacha native: ``chacha.expand_masks``'s route on the card's host and
     the native expansion against numpy's, bit-equal, at 64 seeds x
     1,000,002 (p = 2^63 - 871) and 4 seeds x 4,096 (p = 2^62 + 1, about
     1/4 of the draws rejected), both on the host clock;
-24. example: ``examples/bulk_aggregation_torch.py``'s ``main`` at its
+28. example: ``examples/bulk_aggregation_torch.py``'s ``main`` at its
     defaults on the card (torch CIOS, no kernel), its reveal exact;
-25. scaling artifact: ``tools.make_scaling_artifact.compose`` on the
+29. scaling artifact: ``tools.make_scaling_artifact.compose`` on the
     ``drivers:`` phase's own config-5 row: the projection onto 8 (and 4)
     cards, labelled projected, written to ``build/measurements/``.
-
-The protocol host plane (``sda_tpu_torch.client`` against
-``sda_tpu_torch.server``, also over HTTP through ``sda_tpu_torch.http``
-and the ``cli``/``server_cli`` walkthrough) needs libsodium, which the
-card's machine does not have, so no phase here runs it; the CPU tests
-hold it.
 
 The second-to-last line is a JSON object describing each kernel (B1, B3
 and B6 with the mesh's launches and step times); the last line is
@@ -256,6 +274,63 @@ KEPT_PTXAS = {
                  (128, 176), (128, 220), (223, 0), (235, 0), (247, 0)),
     "mxu7_fused": tuple((r, 0) for r in (73, 96, 97, 116, 122, 125, 128, 128, 203, 215, 226, 238)),
 }
+# the protocol's crypto (sda_tpu_torch/native/nacl.cpp) against published
+# vectors: RFC 7748 § 6.1 (X25519: Alice's and Bob's secret and public
+# keys, the shared secret) and RFC 8032 § 7.1 tests 1-3 (Ed25519: seed,
+# public key, message, signature)
+RFC7748 = ("77076d0a7318a57d3c16c17251b26645df4c2f87ebc0992ab177fba51db92c2a",
+           "8520f0098930a754748b7ddcb43ef75a0dbf3a0d26381af4eba4a98eaa9b4e6a",
+           "5dab087e624a8a4b79e17f8b83800ee66f3bb1292618b6fd1c2f8b27ff88e0eb",
+           "de9edb7d7b7dc1b4d35b61c2ece435373f8343c85b78674dadfc7e146f882b4f",
+           "4a5d9d5ba4ce2de1728e3bf480350f25e07e21c947d19e3376f09b3c1e161742")
+RFC8032 = (
+    ("9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
+     "d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
+     "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e065224901555fb8821590a33bacc61e39701cf9"
+     "b46bd25bf5f0595bbe24655141438e7a100b"),
+    ("4ccd089b28ff96da9db6c346ec114e0f5b8a319f35aba624da8cf6ed4fb8a6fb",
+     "3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c", "72",
+     "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da085ac1e43e15996e458f3613d0f1"
+     "1d8c387b2eaeb4302aeeb00d291612bb0c00"),
+    ("c5aa8df43f9f837bedb7442f31dcb7b166d38535076f094b85ce3a2e0b4458f7",
+     "fc51cd8e6218a1a38da47ed00230f0580816ed13ba3303ac5deb911548908025", "af82",
+     "6291d657deec24024827e69c3abe01a30ce548a284743a445e3680d7db5ac3ac18ff9b538d16f290ae67f760984d"
+     "c6594a7c15e9716ed28dc027beceea1ec40a"),
+)
+# made by libsodium 1.0.18: the sealed box of bytes(range(97)) to the public
+# key of BOX_SK with the ephemeral secret key BOX_ESK (epk || crypto_box_easy
+# with the BLAKE2b-192 nonce of epk || pk), and (seed, public key, message
+# length, signature) of crypto_sign_seed_keypair + crypto_sign_detached on
+# bytes(range(length))
+SODIUM_BOX = dict(
+    sk="563270d47e4fdbd36e9cf68c6efce881fdbd3fdb809d0ef5a2cac30fecb402c5",
+    esk="68eb4daa352c1c8c7ca8ebdfe0e857ad47350e085883165d6bd6fb1baf7bd062",
+    box="efc8b6c99bd11c7643c3cfd705add447c28c704a09be2c45fb5b5134e4fd9967623792d851cac0900861fb97"
+        "bfb95f2eb2c87f0a36d2267f9d6709202f335b4d795f8f10eb4b681de3b18d2fea326879f949e6eeb364b77"
+        "38a7831151860eb587ec5bbb4ff103757e70da4c714e1b9ed2f7d1156e2f7669d60675c91606360e42f9972"
+        "8d1da331de62fb981d922363df0c")
+SODIUM_SIGS = (
+    ("0b5b4f11e645714559eb7573bd9c0b81e4044db57f2f4547dd0076881ce94690",
+     "5afed69fb141d65634fbd88912d2cef18903be092e320cbf135f091d486b278a", 0,
+     "93ce913ac7499b3b59f7dbdfbdd97004dfaa74b5b75b1bc58f03ad43bc9c3ff8e877e86a61d538224917cfd1ec58"
+     "43794846372be601a4646954e8d8d3eefc03"),
+    ("323447d27a4e79dd32247fa16e88f8b5b192bf6fb845710f5a887f13ba1a9782",
+     "d3c29268bf137c5acab65ef87d25b6b258e880fb3793a80234030d21ee37c00b", 200,
+     "c282556dfcf7f3f67ad2011cf36211c545007cb572288517460ab67dab023473423873b6c10bfd3c41a4d8ddd024"
+     "fc9d0bd6caaf15da0b4462282539a1f9e80a"),
+)
+ED25519_L = 2**252 + 27742317777372353535851937790883648493
+# a y of order 8 (libsodium's small-order list): as R with S = 0 it is refused
+SMALL_ORDER_Y8 = "c7176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac037a"
+# the protocol loop (bench.py:_bench_system_e2e's run_loop): pass A, the
+# ChaCha pass (every clerk on the bulk route), and pass B, the
+# config-4-shaped one (every client on the bulk route)
+FULL_LOOP = {"A": dict(dimension=1_002, participants=1_000, masking="chacha", workers=8,
+                       all_bulk=False),
+             "B": dict(dimension=1_000_002, participants=8, masking="none", workers=4,
+                       all_bulk=True)}
+# the README walkthrough: its reveal
+CLI_REVEAL = "0 2 2 4 4 6 6 8 8 10"
 
 
 def _ptxas_spills(report: str) -> dict:
@@ -2686,6 +2761,389 @@ def _mesh_lines(r: dict, card: str) -> list[str]:
     ]
 
 
+def phase_crypto():
+    """The port's sealed boxes and Ed25519 (``sda_tpu_torch/native/nacl.cpp``,
+    built on this host with ``-march=native``) against RFC 7748 § 6.1, RFC
+    8032 § 7.1 tests 1-3 and libsodium's own vectors (``SODIUM_BOX``,
+    ``SODIUM_SIGS``), mutated signatures refused; then the host time per
+    call of X25519, ``seal`` and ``seal_open`` of 1 KB and of one clerk's
+    box at 1,000,002 / 3 values, ``sign_detached`` and ``verify_detached``."""
+    import ctypes
+    import ctypes.util
+
+    import numpy as np
+
+    from sda_tpu_torch import sodium
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.utils.varint import encode_varints
+
+    t0 = time.perf_counter()
+    lib = sodium._lib()
+    load_s = time.perf_counter() - t0
+    buf = ctypes.create_string_buffer
+    wrong = []
+
+    def check(ok: bool, what: str):
+        if not ok:
+            wrong.append(what)
+
+    a, a_pub, b, b_pub, shared = (bytes.fromhex(x) for x in RFC7748)
+    for sk, pub, other in ((a, a_pub, b_pub), (b, b_pub, a_pub)):
+        q, s = buf(32), buf(32)
+        check(lib.sda_x25519_base(q, sk) == 0 and q.raw == pub, "RFC 7748 public key")
+        check(lib.sda_x25519(s, sk, other) == 0 and s.raw == shared, "RFC 7748 shared secret")
+    for i, case in enumerate(RFC8032, 1):
+        seed, pk, msg, sig = (bytes.fromhex(x) for x in case)
+        vk, sk = buf(32), buf(64)
+        lib.sda_sign_seed_keypair(vk, sk, seed)
+        check(vk.raw == pk and sk.raw == seed + pk, f"RFC 8032 test {i} keys")
+        check(sodium.sign_detached(msg, sk.raw) == sig, f"RFC 8032 test {i} signature")
+        check(sodium.verify_detached(sig, msg, pk), f"RFC 8032 test {i} verification")
+    bsk, esk, box = (bytes.fromhex(SODIUM_BOX[k]) for k in ("sk", "esk", "box"))
+    msg = bytes(range(97))
+    bpk, sealed = buf(32), buf(len(msg) + sodium.SEALBYTES)
+    lib.sda_x25519_base(bpk, bsk)
+    check(lib.sda_box_seal(sealed, msg, len(msg), bpk.raw, esk) == 0 and sealed.raw == box,
+          "libsodium's sealed box")
+    check(sodium.seal_open(box, bpk.raw, bsk) == msg, "libsodium's sealed box opened")
+    refused = 0
+    for seed, pk, n, sig in SODIUM_SIGS:
+        seed, pk, sig = (bytes.fromhex(x) for x in (seed, pk, sig))
+        m = bytes(range(n))
+        vk, sk = buf(32), buf(64)
+        lib.sda_sign_seed_keypair(vk, sk, seed)
+        check(vk.raw == pk and sodium.sign_detached(m, sk.raw) == sig, "libsodium's signature")
+        check(sodium.verify_detached(sig, m, pk), "libsodium's signature verified")
+        s = int.from_bytes(sig[32:], "little")
+        for bad_sig, bad_pk in ((sig[:32] + (s + ED25519_L).to_bytes(32, "little"), pk),
+                                (bytes([sig[0] ^ 1]) + sig[1:], pk),
+                                (bytes.fromhex(SMALL_ORDER_Y8) + bytes(32), pk),
+                                (sig, bytes([1]) + bytes(31))):
+            check(not sodium.verify_detached(bad_sig, m, bad_pk), "a mutated signature accepted")
+            refused += 1
+    if wrong:
+        raise AssertionError(f"the port's crypto on this host: {', '.join(wrong)}")
+
+    def per_call_ms(fn, n: int) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    rng = np.random.default_rng(72)
+    p = find_special_prime_field(63, 8, 9)[0]
+    clerk = encode_varints(rng.integers(0, p, size=-(-HEADLINE_DIM // 3), dtype=np.int64))
+    ek, dk = sodium.box_keypair()
+    q = buf(32)
+    ms = {"x25519": per_call_ms(lambda: lib.sda_x25519(q, a, b_pub), 200)}
+    for label, m, n in (("1 KB", rng.bytes(1024), 200),
+                        (f"one clerk's box ({len(clerk):,} B)", clerk, 10)):
+        box_m = sodium.seal(m, ek)
+        ms[f"seal {label}"] = per_call_ms(lambda: sodium.seal(m, ek), n)
+        ms[f"seal_open {label}"] = per_call_ms(lambda: sodium.seal_open(box_m, ek, dk), n)
+    vk, sk = sodium.sign_keypair()
+    m = rng.bytes(200)
+    sig = sodium.sign_detached(m, sk)
+    ms["sign_detached (200 B)"] = per_call_ms(lambda: sodium.sign_detached(m, sk), 200)
+    ms["verify_detached (200 B)"] = per_call_ms(lambda: sodium.verify_detached(sig, m, vk), 200)
+    return {"ms": ms, "refused": refused, "load_s": load_s, "library": Path(lib._name).name,
+            "find_library": ctypes.util.find_library("sodium")}
+
+
+def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
+               all_bulk: bool) -> dict:
+    """One pass of ``bench.py:_bench_system_e2e``'s ``run_loop`` on the port:
+    a recipient, 8 clerks (``device_bulk_threshold=1``, the bulk route) on a
+    deterministic committee and up to 8 participant agents, packed Shamir
+    (3 secrets, 8 shares, threshold 4) at ``find_special_prime_field(63, 8,
+    9)``, ``serve_background`` over a jsondir store in a temporary directory.
+    With ``all_bulk`` every client
+    takes the bulk route: the participants share with ``share_mxu`` and the
+    recipient reconstructs on the card. Build, ingest, snapshot, drain and
+    reveal on the host clock; the reveal's launches, the clerks' combine
+    routes and the devices of the clients' engines."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import client as client_mod
+    from sda_tpu_torch import protocol as proto
+    from sda_tpu_torch.client import Keystore, MemoryStore, SdaClient, new_agent
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.http import HttpSdaService, serve_background
+    from sda_tpu_torch.server import new_jsondir_server
+
+    p, w2, w3 = find_special_prime_field(63, 8, 9)
+    scheme = (proto.ChaChaMasking(modulus=p, dimension=dimension, seed_bitsize=128)
+              if masking == "chacha" else proto.NoMasking())
+    tmp = tempfile.mkdtemp(prefix="sda-loop-")
+    try:
+        with serve_background(new_jsondir_server(tmp)) as url:
+            def mk(threshold=None):
+                ks = Keystore(MemoryStore())
+                return SdaClient(new_agent(ks), ks, HttpSdaService(url, MemoryStore()),
+                                 device_bulk_threshold=threshold)
+
+            bulk = 1 if all_bulk else None
+            recipient = mk(bulk)
+            rkey = recipient.new_encryption_key()
+            recipient.upload_agent()
+            recipient.upload_encryption_key(rkey)
+            agg = proto.Aggregation(
+                id=proto.new_id(), title="full loop", vector_dimension=dimension, modulus=p,
+                recipient=recipient.agent.id, recipient_key=rkey, masking_scheme=scheme,
+                committee_sharing_scheme=proto.PackedShamirSharing(
+                    secret_count=3, share_count=8, privacy_threshold=4, prime_modulus=p,
+                    omega_secrets=w2, omega_shares=w3),
+            )
+            recipient.upload_aggregation(agg)
+            clerks = [mk(1) for _ in range(8)]
+            keys = []
+            for c in clerks:
+                keys.append(c.new_encryption_key())
+                c.upload_agent()
+                c.upload_encryption_key(keys[-1])
+            # the committee is exactly the 8 clerks: the service's suggestion
+            # may seat the recipient, who drains no job
+            recipient.service.create_committee(recipient.agent, proto.Committee(
+                aggregation=agg.id,
+                clerks_and_keys=tuple((c.agent.id, k) for c, k in zip(clerks, keys))))
+
+            rng = np.random.default_rng(17)
+            secrets = rng.integers(0, 1 << 62, size=(participants, dimension),
+                                   dtype=np.int64) % p
+            expect = [int(x) for x in secrets.astype(object).sum(axis=0) % p]
+            agents = [mk(bulk) for _ in range(min(8, participants))]
+            for c in agents:
+                c.upload_agent()
+
+            def run(fn):
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(max_workers=workers) as ex:
+                    out = list(ex.map(fn, range(participants)))
+                return out, time.perf_counter() - t0
+
+            parts, t_build = run(lambda i: agents[i % len(agents)].new_participation(
+                secrets[i], agg.id))
+            wire = sum(len(e.data) for part in parts for _, e in part.clerk_encryptions)
+            wire += sum(len(part.recipient_encryption.data) for part in parts
+                        if part.recipient_encryption is not None)
+            _, t_ingest = run(lambda i: agents[i % len(agents)].upload_participation(parts[i]))
+            t0 = time.perf_counter()
+            recipient.end_aggregation(agg.id)
+            t_snapshot = time.perf_counter() - t0
+
+            before = dict(client_mod.combine_routes)
+            t0 = time.perf_counter()
+            drained = sum(1 for c in clerks for _ in iter(c.clerk_once, False))
+            t_drain = time.perf_counter() - t0
+            routes = {k: n - before[k] for k, n in client_mod.combine_routes.items()}
+
+            _reset_counts()
+            t0 = time.perf_counter()
+            revealed = recipient.reveal_aggregation(agg.id).positive()
+            torch.cuda.synchronize()
+            t_reveal = time.perf_counter() - t0
+            launches = {**_counts(), **_chacha_counts()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "exact": revealed.values.tolist() == expect, "drained": drained, "routes": routes,
+        "launches": {k: n for k, n in launches.items() if n},
+        "engines": {"sharing": sorted({e.device.type for c in agents
+                                       for e in c._engines.values()}),
+                    "reconstruction": sorted({e.device.type
+                                              for e in recipient._engines.values()})},
+        "s": {"build": t_build, "ingest": t_ingest, "snapshot": t_snapshot,
+              "drain": t_drain, "reveal": t_reveal},
+        "wire_mb": wire / 1e6, "participants": participants,
+        "dimension": dimension,
+    }
+
+
+def phase_full_loop():
+    """The protocol loop on the card (``FULL_LOOP``): pass A, 1,000 x 1,002
+    under ChaCha masking over HTTP, whose reveal must be exact, launch B5
+    exactly once and B4 never, after every clerk job took the fused native
+    open + combine; pass B, 8 x 1,000,002 with no masking and every client
+    on the bulk route, whose reveal must be exact with the sharing and the
+    reconstruction on the card. Then B5 alone at pass A's reveal shape,
+    timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    out = {}
+    for name, cfg in FULL_LOOP.items():
+        r = _loop_pass(**cfg)
+        shape = f"{cfg['participants']:,} x {cfg['dimension']:,}"
+        if not r["exact"]:
+            raise AssertionError(f"full loop {name} ({shape}): the reveal != the sum mod p")
+        if r["drained"] != 8 or r["routes"] != {"fused": 8, "device": 0, "sequential": 0}:
+            raise AssertionError(f"full loop {name}: {r['drained']} clerk jobs drained, routes "
+                                 f"{r['routes']}: not 8 on the fused native open + combine")
+        want = {"chacha_fold": 1} if cfg["masking"] == "chacha" else {}
+        if r["launches"] != want:
+            raise AssertionError(f"full loop {name}: the reveal launched {r['launches']}, "
+                                 f"not {want}")
+        if cfg["all_bulk"] and (r["engines"]["sharing"] != ["cuda"]
+                                or r["engines"]["reconstruction"] != ["cuda"]):
+            raise AssertionError(f"full loop {name}: engines on {r['engines']}, not the card")
+        out[name] = r
+    cfg = FULL_LOOP["A"]
+    p = find_special_prime_field(63, 8, 9)[0]
+    rng = np.random.default_rng(73)
+    seeds = [chacha.new_seed(128, rng) for _ in range(cfg["participants"])]
+    keys = ck._key_tensor(seeds, torch.device(DEVICE))
+    out["b5"] = cuda_time(lambda i: ck._launch_fold(keys, cfg["dimension"], p), iters=20)
+    return out
+
+
+def phase_cli():
+    """The README walkthrough as processes: ``python -m
+    sda_tpu_torch.server_cli --jfs <tmp> httpd -b 127.0.0.1:0`` and each
+    ``python -m sda_tpu_torch.cli`` call of ``tests/test_torch_cli.py``; the
+    reveal must be ``CLI_REVEAL``. The server started here, and only it, is
+    stopped at the end."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="sda-cli-"))
+    log = tmp / "server.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "sda_tpu_torch.server_cli", "--jfs", str(tmp / "server"),
+             "httpd", "-b", "127.0.0.1:0"], cwd=root, stdout=subprocess.DEVNULL, stderr=err)
+    calls = []
+    try:
+        deadline = time.monotonic() + 120
+        while (found := re.search(r"Starting server on (\S+)", log.read_text())) is None:
+            if server.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"the CLI server did not start: {log.read_text()[-2000:]}")
+            time.sleep(0.1)
+        url = found.group(1)
+
+        def sda(ident: str, *args) -> str:
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "sda_tpu_torch.cli", "-s", url, "-i",
+                 str(tmp / "agent" / ident), *map(str, args)],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            calls.append(time.perf_counter() - t)
+            if proc.returncode != 0:
+                raise AssertionError(f"sda -i {ident} {' '.join(map(str, args))} exited "
+                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        for ident in ("recipient", "clerk-1", "clerk-2", "clerk-3"):
+            sda(ident, "agent", "create")
+            sda(ident, "agent", "keys", "create")
+        for ident in ("part-1", "part-2", "part-3"):
+            sda(ident, "agent", "create")
+        key_id = sda("recipient", "agent", "keys", "show").strip().splitlines()[0]
+        aggid = "ad3142d8-9a83-4f40-a64a-a8c90b701bde"
+        sda("recipient", "aggregations", "create", "--id", aggid, "aggro", 10, 433, key_id, 3)
+        sda("recipient", "aggregations", "begin", aggid)
+        sda("part-1", "participate", aggid, *range(10))
+        sda("part-2", "participate", aggid, *[0] * 10)
+        sda("part-3", "participate", aggid, *[0, 1] * 5)
+        sda("recipient", "aggregations", "end", aggid)
+        for ident in ("recipient", "clerk-1", "clerk-2", "clerk-3"):
+            sda(ident, "clerk", "--once")
+        out = sda("recipient", "aggregations", "reveal", aggid)
+        got = re.search(r"result: ([0-9 ]+)", out)
+        if got is None or got.group(1).strip() != CLI_REVEAL:
+            raise AssertionError(f"the CLI walkthrough revealed {out.strip()!r}, not {CLI_REVEAL}")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"s": time.perf_counter() - t0, "calls": calls, "reveal": got.group(1).strip()}
+
+
+def phase_crossover():
+    """``sda_tpu_torch.tools.measure_combine_crossover.measure()`` on the card
+    at the tool's shapes: the fused native open + combine against the
+    streamed device route, their results equal; written to
+    ``build/measurements/CROSSOVER.json``."""
+    from sda_tpu_torch import client as client_mod
+    from sda_tpu_torch.tools import measure_combine_crossover as mcc
+    from sda_tpu_torch.tools._common import write_artifact
+
+    t0 = time.perf_counter()
+    art = mcc.measure(device=DEVICE)
+    s = time.perf_counter() - t0
+    return {"artifact": art, "path": write_artifact("CROSSOVER", art), "s": s,
+            "constant": client_mod.DEVICE_COMBINE_CROSSOVER}
+
+
+def _crypto_line(cr: dict, card: str) -> str:
+    times = ", ".join(f"{k} {v:.4f} ms" for k, v in cr["ms"].items())
+    return (f"crypto: sda_tpu_torch/native/nacl.cpp ({cr['library']}, -O3 -march=native, ready in "
+            f"{cr['load_s']:.1f} s) on the host of {card}; find_library('sodium') = "
+            f"{cr['find_library']!r}; RFC 7748 § 6.1 (both public keys, the shared secret both "
+            f"ways), RFC 8032 § 7.1 tests 1-3 (keys, signatures, verification), libsodium's sealed "
+            f"box (byte-equal with its ephemeral key, opened) and {len(SODIUM_SIGS)} signatures "
+            f"(byte-equal, verified), {cr['refused']} mutated signatures refused: all pass; per "
+            f"call on the host clock: {times}")
+
+
+def _loop_lines(fl: dict, card: str) -> list[str]:
+    lines = []
+    for name, r in fl.items():
+        if name == "b5":
+            continue
+        s, n = r["s"], r["participants"]
+        checks = ("B5 x 1 and B4 x 0 in the reveal" if name == "A" else
+                  f"sharing on {r['engines']['sharing'][0]} (share_mxu), reconstruction on "
+                  f"{r['engines']['reconstruction'][0]}")
+        lines.append(
+            f"full loop: {name} {n:,} participants x {r['dimension']:,} "
+            f"({FULL_LOOP[name]['masking']} masking, {FULL_LOOP[name]['workers']} workers) over "
+            f"HTTP (jsondir store) on {card}: build {s['build']:.3f} s "
+            f"({n / s['build']:.1f} participations/s), ingest {s['ingest']:.3f} s, snapshot "
+            f"{s['snapshot'] * 1e3:.1f} ms, drain {s['drain']:.3f} s "
+            f"({n / s['drain']:.1f} participations/s, 8 clerk jobs), reveal "
+            f"{s['reveal'] * 1e3:.1f} ms; wire {r['wire_mb']:.3f} MB; {sum(s.values()):.1f} s in "
+            f"all; reveal exact; 8 clerk jobs on the fused native open + combine; {checks}")
+    t = fl["b5"]
+    lines.append(f"full loop: B5 at pass A's reveal ({FULL_LOOP['A']['participants']:,} seeds x "
+                 f"{FULL_LOOP['A']['dimension']:,}) on {card}: median {t.median_ms:.4f} ms (min "
+                 f"{t.min_ms:.4f}, max {t.max_ms:.4f}), CUDA events")
+    return lines
+
+
+def _cli_line(cl: dict, card: str) -> str:
+    c = sorted(cl["calls"])
+    return (f"cli: README walkthrough (server_cli httpd + {len(c)} sda processes) on the host of "
+            f"{card}: result {cl['reveal']}; {cl['s']:.1f} s in all, a call median "
+            f"{c[len(c) // 2]:.3f} s (min {c[0]:.3f}, max {c[-1]:.3f})")
+
+
+def _crossover_line(co: dict, card: str, root: Path) -> str:
+    art = co["artifact"]
+    rows = "; ".join(f"{r['boxes']} x {r['elements_per_box']}: fused {r['fused_native_s']:.4f} s, "
+                     f"device {r['streamed_device_s']:.4f} s ({r['winner']})" for r in art["rows"])
+    return (f"tool combine crossover: on {card}, host clock: {rows}; crossover "
+            f"{art['observed_crossover_elements']} elements (DEVICE_COMBINE_CROSSOVER stays "
+            f"{co['constant']:,}); {co['s']:.1f} s; wrote {co['path'].relative_to(root)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2997,6 +3455,12 @@ def main() -> int:
     for line in _drivers_lines(dr, card, c4["timing"].median_ms):
         print(line, flush=True)
     dl = dr["launches"]
+    print(_crypto_line(phase_crypto(), card), flush=True)
+    fl = phase_full_loop()
+    for line in _loop_lines(fl, card):
+        print(line, flush=True)
+    print(_cli_line(phase_cli(), card), flush=True)
+    print(_crossover_line(phase_crossover(), card, root), flush=True)
 
     bd = phase_breakdown()
     for line in _breakdown_lines(bd, card):
@@ -3163,6 +3627,10 @@ def main() -> int:
             "combine_host_ms": hm[1],
             "seeds_per_s": CHACHA["seeds"] / (hm[1] / 1e3),
             "fullmask_device_ms": fm["device_ms"],
+            "loop_launches": fl["A"]["launches"]["chacha_fold"],
+            "loop_shape": f"S={FULL_LOOP['A']['participants']} d={FULL_LOOP['A']['dimension']}",
+            "loop_ms": fl["b5"].median_ms,
+            "loop_reveal_host_ms": fl["A"]["s"]["reveal"] * 1e3,
         },
         {
             "name": "mxu7_fused",

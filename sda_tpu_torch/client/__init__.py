@@ -37,15 +37,20 @@ from sda_tpu_torch.utils.errors import Invalid
 __all__ = ["SdaClient", "RecipientOutput", "new_agent", "Filebased", "MemoryStore", "Keystore"]
 
 # Bulk-job size (total share elements = participants x per-clerk vector
-# length) above which the streamed-device accumulate is used WHEN THE
-# NATIVE LIBRARY IS ABSENT. The reference's figure, kept: its measurement
-# (the reference's tools/measure_combine_crossover.py) had the fused native
-# open+combine beat the device route at every size, so bulk routing
-# always prefers it; the device path is the fallback that still beats the
-# pure-python sequential fold on large jobs when libsda_native cannot
-# load. The port's own measurement is
+# length) above which the streamed-device accumulate is used WHEN THE FUSED
+# NATIVE OPEN+COMBINE DOES NOT RUN (``open_combine`` returns None). The
+# reference's figure, kept: its measurement (the reference's
+# tools/measure_combine_crossover.py) had the fused native open+combine
+# beat the device route at every size, so bulk routing always prefers it.
+# The port's own measurement is
 # sda_tpu_torch/tools/measure_combine_crossover.py.
 DEVICE_COMBINE_CROSSOVER = 20_000_000
+
+# the clerk jobs each combine route has taken in this process (see
+# SdaClient.process_clerking_job): "fused" (the native open+combine),
+# "device" (streamed decrypt + device_combine) or "sequential" (decrypt,
+# then the scheme's combine)
+combine_routes = {"fused": 0, "device": 0, "sequential": 0}
 
 
 def _streamed_decrypt(decryptor, encryptions, expected_len=None, chunk: int = 256):
@@ -160,10 +165,15 @@ class SdaClient:
         import torch
 
         engine = self._bulk_engine(scheme, len(masked_secrets))
-        enc = engine.encode_secrets(np.asarray(masked_secrets, dtype=object)[None, :])
+        # integer arrays take encode_secrets' int64 path and, below 2^63,
+        # the shares come back as int64: at a million dimensions the object
+        # ints of the reference's round trip cost seconds a participation
+        enc = engine.encode_secrets(np.asarray(masked_secrets)[None, :])
         ext = torch.cat([enc, engine.random_ext(1)], dim=2)
         share_fn = engine.share_mxu if engine.mxu is not None else engine.share
-        shares = engine.decode_shares(share_fn(ext))  # [1, nb, n]
+        out = share_fn(ext)
+        small = engine.ctx.p < (1 << 63)
+        shares = engine.ctx.decode_i64(out) if small else engine.decode_shares(out)  # [1, nb, n]
         return shares[0].T.copy()  # [n, nb]
 
     def _device_reconstruct(self, scheme, indexed_shares, dimension: int) -> np.ndarray:
@@ -179,13 +189,18 @@ class SdaClient:
         engine = self._bulk_engine(scheme, dimension)
         indexed_shares = sorted(indexed_shares, key=lambda t: t[0])
         indices = [i for i, _ in indexed_shares]
-        combined = np.asarray([v for _, v in indexed_shares], dtype=object).T  # [nb, s]
-        limbs = engine.ctx.encode(combined, engine.device)
+        small = engine.ctx.p < (1 << 63)  # the int64 paths, as in _device_share_vector
+        combined = np.asarray([v for _, v in indexed_shares],
+                              dtype=np.int64 if small else object).T  # [nb, s]
+        encode = engine.ctx.encode_i64 if small else engine.ctx.encode
+        limbs = encode(combined, engine.device)
         if indices == list(range(scheme.output_size)):
             out = engine.reconstruct(limbs)
         else:
             mat = np.asarray(scheme.reconstruct_matrix(indices), dtype=object)
             out = modmat(engine.ctx, limbs, engine.ctx.encode_mont(mat, engine.device))
+        if small:
+            return engine.ctx.decode_i64(out).reshape(-1)[:dimension]
         vals = engine.decode_output(out)
         return np.array([int(v) for v in vals], dtype=np.int64)
 
@@ -345,7 +360,7 @@ class SdaClient:
         #    without ever materialising the share matrix
         #    (ShareDecryptor.open_combine) — CROSSOVER.json shows it beats
         #    the streamed-device route at every measured size;
-        #  - native library unavailable + job above
+        #  - fused route not run (open_combine returned None) + job above
         #    DEVICE_COMBINE_CROSSOVER elements: streamed decrypt + device
         #    accumulate (still far ahead of the pure-python fold at scale);
         #  - no threshold configured (or >=2^63 modulus): the reference's
@@ -364,6 +379,7 @@ class SdaClient:
             combined = decryptor.open_combine(
                 job.encryptions, aggregation.modulus, share_len
             )
+            route = "fused"
             if combined is None and self._fallback_wants_device(est_elements):
                 from sda_tpu_torch.engine import device_combine
 
@@ -372,10 +388,13 @@ class SdaClient:
                     _streamed_decrypt(decryptor, job.encryptions, share_len),
                     device=self.device,
                 )
+                route = "device"
         if combined is None:
             share_vectors = decryptor.decrypt_many(job.encryptions)
             combiner = self.crypto.new_share_combiner(aggregation.committee_sharing_scheme)
             combined = combiner.combine(share_vectors)
+            route = "sequential"
+        combine_routes[route] += 1
 
         recipient_key = self._verified_encryption_key(
             aggregation.recipient, aggregation.recipient_key

@@ -75,33 +75,25 @@ class ShareDecryptor:
     ):
         """Fused clerk combine: open + decode + modular-accumulate in ONE
         native call, never materialising the decoded share matrix
-        (native/sealed_batch.cpp — the streaming answer to clerk.rs:71-72).
+        (sda_tpu_torch/native/sealed_batch.cpp — the streaming answer to
+        clerk.rs:71-72).
 
         Returns the combined vector with canonical ``[0, p)`` representatives
         (protocol-equivalent to the reference's signed fold, same convention
-        as :func:`sda_tpu_torch.engine.device_combine`), or ``None`` when the
-        native library is unavailable (caller falls back to
-        ``decrypt_many`` + ``combine``). ``dim`` is the per-clerk share
-        count every box must decode to; a mismatch raises ``Invalid`` like
-        the sequential combine's dimension check, a tampered box raises
-        ``Invalid`` like ``decrypt`` and a malformed varint stream raises
-        ``ValueError`` like ``decode_varints``.
+        as :func:`sda_tpu_torch.engine.device_combine`), or ``None`` when
+        ``modulus`` is outside ``(0, 2^63)``, where the native accumulate
+        does not apply (the caller then decrypts and combines). ``dim`` is
+        the per-clerk share count every box must decode to; a mismatch
+        raises ``Invalid`` like the sequential combine's dimension check, a
+        tampered box raises ``Invalid`` like ``decrypt`` and a malformed
+        varint stream raises ``ValueError`` like ``decode_varints``. When the
+        native library cannot be built it raises ``RuntimeError``.
         """
         import ctypes
 
-        fn = _native_fn(
-            "sda_sealed_open_combine",
-            [
-                ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_size_t),
-                ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p,
-                ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_size_t, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_size_t),
-            ],
-            ctypes.c_int,
-        )
-        if fn is None or not (0 < modulus < (1 << 63)):
+        if not (0 < modulus < (1 << 63)):
             return None
+        fn = sodium._lib().sda_sealed_open_combine
         staged = _stage_boxes(encryptions)
         if staged is None:
             # empty job: the additive identity at the declared dimension
@@ -122,8 +114,6 @@ class ShareDecryptor:
         )
         if rc == 0:
             return combined
-        if rc == -1:
-            return None  # libsodium not resolvable: fall back
         if rc == -2:
             raise Invalid("sodium seal_open failure (tampered or wrong key)")
         if rc == -3:
@@ -131,57 +121,24 @@ class ShareDecryptor:
         raise Invalid("Wrong dimension")
 
     def decrypt_many(self, encryptions, workers: int | None = None) -> list:
-        """Parallel bulk decryption of a clerking job's share vectors.
+        """Bulk decryption of a clerking job's share vectors.
 
         The reference opens every participation's sealed box sequentially
         inside the clerk hot loop (clerk.rs:78-82, with the FIXME at 71-72
-        about exactly this). Preferred path: ONE native call
-        (native/sealed_batch.cpp) runs seal_open + varint decode for the
-        whole job on a C++ thread pool, no per-box interpreter overhead.
-        Fallback: a Python thread pool (both halves of decrypt release the
-        GIL under ctypes), or the sequential loop below 3 cores where pool
-        overhead beats X25519 parallelism. Order is preserved; any tampered
-        box raises ``Invalid`` exactly as the sequential path does.
+        about exactly this). From 8 boxes on, ONE native call
+        (sda_tpu_torch/native/sealed_batch.cpp) runs seal_open + varint
+        decode for the whole job on a C++ thread pool, no per-box
+        interpreter overhead; below that the boxes are opened one by one.
+        Order is preserved; any tampered box raises ``Invalid`` exactly as
+        the sequential path does.
         """
-        import os
-
         encryptions = list(encryptions)
-        if len(encryptions) >= 8:
-            got = _native_open_batch(encryptions, self._ek, self._dk, workers)
-            if got is not None:
-                return got
-        n_cores = os.cpu_count() or 1
-        if len(encryptions) < 8 or (workers or n_cores) <= 2:
-            # pool overhead beats X25519 parallelism below ~3 cores
+        if len(encryptions) < 8:
             return [self.decrypt(e) for e in encryptions]
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(max_workers=_default_workers(workers)) as ex:
-            return list(ex.map(self.decrypt, encryptions, chunksize=32))
+        return _native_open_batch(encryptions, self._ek, self._dk, workers)
 
 
 _SEAL_BYTES = 48  # crypto_box_SEALBYTES
-
-
-def _native_fn(name: str, argtypes, restype):
-    """Resolve a libsda_native symbol, setting its ctypes signature once.
-
-    One latch per symbol (kept on this function) so both native entry
-    points share the staging/signature plumbing — the next ABI change is
-    made in exactly one place.
-    """
-    from sda_tpu_torch.utils.varint import native_library
-
-    lib = native_library()
-    if lib is None or not hasattr(lib, name):
-        return None
-    typed = _native_fn.__dict__.setdefault("_typed", set())
-    fn = getattr(lib, name)
-    if name not in typed:
-        fn.restype = restype
-        fn.argtypes = argtypes
-        typed.add(name)
-    return fn
 
 
 def _stage_boxes(encryptions):
@@ -203,8 +160,7 @@ def _default_workers(workers):
 
 
 def _native_open_batch(encryptions, ek: bytes, dk: bytes, workers):
-    """Whole-job sealed-box open via native/sealed_batch.cpp, or ``None``
-    when the native library (or its libsodium) is unavailable.
+    """Whole-job sealed-box open via sda_tpu_torch/native/sealed_batch.cpp.
 
     Decoded values land in ONE flat buffer at per-box offsets derived from
     each box's plaintext size (a plaintext byte yields at most one varint),
@@ -213,18 +169,7 @@ def _native_open_batch(encryptions, ek: bytes, dk: bytes, workers):
     """
     import ctypes
 
-    fn = _native_fn(
-        "sda_sealed_open_batch",
-        [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_size_t),
-            ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_size_t),
-            ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
-        ],
-        ctypes.c_int,
-    )
-    if fn is None:
-        return None
+    fn = sodium._lib().sda_sealed_open_batch
     staged = _stage_boxes(encryptions)
     if staged is None:
         return []
@@ -237,7 +182,7 @@ def _native_open_batch(encryptions, ek: bytes, dk: bytes, workers):
     )
     out = np.empty(int(out_offs[-1]), dtype=np.int64)
     lens = np.empty(count, dtype=np.uintp)
-    rc = fn(
+    fn(
         blob.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         offs.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)),
         count, ek, dk,
@@ -245,9 +190,7 @@ def _native_open_batch(encryptions, ek: bytes, dk: bytes, workers):
         out_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)),
         lens.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)),
         _default_workers(workers),
-    )
-    if rc != 0:
-        return None
+    )  # returns 0: each box's failure is in lens
     open_failed = np.uintp((1 << 64) - 1)  # SIZE_MAX
     decode_failed = np.uintp((1 << 64) - 2)  # SIZE_MAX - 1
     result = []

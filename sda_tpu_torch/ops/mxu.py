@@ -73,16 +73,25 @@ def limbs7_host(values, L7: int) -> np.ndarray:
     return out.reshape(arr.shape + (L7,))
 
 
+def _int_mm_shape(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """The zero-padded ``(M, K, N)`` that ``torch._int_mm`` takes on the
+    card: K and N multiples of 8 (its own rule) and M a multiple of 32. At
+    M = 8 mod 16 (1,000 rows, or the 333,336 of a participant's
+    ``share_mxu`` at 1,000,002 dimensions) cuBLASLt on the H100 returned
+    CUBLAS_STATUS_NOT_SUPPORTED."""
+    return max(32, -(-m // 32) * 32), -(-k // 8) * 8, -(-n // 8) * 8
+
+
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact ``a[M, K] @ b[K, N]`` of int8 operands whose sums stay below
     2^31, as int64. On the card: ``torch._int_mm``, with the operands
-    zero-padded to its shape rules (more than 16 rows, K and N multiples of
-    8). On the CPU: float64, exact since every sum is below 2^53."""
+    zero-padded to :func:`_int_mm_shape`. On the CPU: float64, exact since
+    every sum is below 2^53."""
     if a.device.type != "cuda":
         return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
     m, k = a.shape
     n = b.shape[1]
-    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    mp, kp, np_ = _int_mm_shape(m, k, n)
     a = torch.nn.functional.pad(a.to(torch.int8), (0, kp - k, 0, mp - m)).contiguous()
     b = torch.nn.functional.pad(b.to(torch.int8), (0, np_ - n, 0, kp - k)).contiguous()
     return torch._int_mm(a, b)[:m, :n].to(torch.int64)

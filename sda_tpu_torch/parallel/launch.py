@@ -50,13 +50,15 @@ def _rank_main(rank, world, store_path, device_type, timeout, fn, args, out_q):
             dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, args=(), device_type: str = "cpu",
+def spawn_ranks(fn, world: int, args=(), device_type: str | None = None,
                 timeout: float = RANK_TIMEOUT_S) -> dict:
     """Call ``fn(*args)`` on every rank of a new ``world``-rank process
-    group (``device_type`` ``"cpu"``: gloo, ``"cuda"``: NCCL) and return
-    ``{rank: result}``. ``fn`` and ``args`` must pickle (a module-level
-    function). Raises if a rank raises, exits with no result, or the group
-    outlasts ``timeout`` seconds."""
+    group (``device_type`` ``"cpu"``: gloo, ``"cuda"``: NCCL; ``None``
+    means ``cuda``, as in :func:`make_mesh`) and return ``{rank: result}``.
+    ``fn`` and ``args`` must pickle (a module-level function). Raises if a
+    rank raises, exits with no result, or the group outlasts ``timeout``
+    seconds."""
+    device_type = "cuda" if device_type is None else device_type
     if device_type not in ("cpu", "cuda"):
         raise ValueError(f"device_type must be 'cpu' or 'cuda', not {device_type!r}")
     if device_type == "cuda" and torch.cuda.device_count() < world:

@@ -5,7 +5,8 @@ streamed device route, on real sealed boxes.
 
 Port of the reference's ``tools/measure_combine_crossover.py``. Both bulk
 routes of :meth:`sda_tpu_torch.client.SdaClient.process_clerking_job` pay
-the same libsodium ``seal_open`` cost; they differ in what follows it:
+the same ``seal_open`` cost (the port's own, ``sda_tpu_torch/native/nacl.cpp``); they
+differ in what follows it:
 
 - **fused native** (:meth:`ShareDecryptor.open_combine`): varint decode and
   the modular accumulate in the same C++ pass, no materialisation;
@@ -16,8 +17,8 @@ the same libsodium ``seal_open`` cost; they differ in what follows it:
 
 Both FULL paths (opens included) are timed on the host clock at the
 reference's four job sizes, their results must agree, and the first size
-at which the device route wins is reported. It needs libsodium and the
-native library (built from ``native/`` on first use). The port's
+at which the device route wins is reported. It needs the port's native
+library (:mod:`sda_tpu_torch.ops.native_build`, built on first use). The port's
 ``DEVICE_COMBINE_CROSSOVER`` keeps the reference's value; this tool
 records this host's figure. Writes
 ``build/measurements/CROSSOVER.json``.
@@ -66,7 +67,7 @@ def measure(shapes=SHAPES, device=None) -> dict:
         fused = dec.open_combine(boxes, p, d)
         t_fused = time.perf_counter() - t0
         if fused is None:
-            raise RuntimeError("the native library or libsodium is unavailable: nothing to measure")
+            raise RuntimeError(f"the modulus {p} is outside the fused route's range")
 
         # warm the device route (allocator, first copy) at this dimension
         device_combine(p, _streamed_decrypt(dec, boxes[:256]), device=device)

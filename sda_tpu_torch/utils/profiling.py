@@ -69,10 +69,12 @@ ISSUE_LANES = 128
 _QUEUE_CYCLES = 20_000_000
 WARMUP_CALLS = 1
 # tiny kernels of the throwaway profiler session before each traced one;
-# the sessions profile_calls tries; how far (us) a device activity may seem
-# to start before its launch (the two clocks' jitter)
+# the sessions profile_calls tries (on an H100, 3 of 50 sessions of config
+# 3's B2 call had activities 33-180 us before their launches, and once
+# three sessions in a row did); how far (us) a device activity may seem to
+# start before its launch (the two clocks' jitter)
 _WARMUP_KERNELS = 64
-_ATTEMPTS = 3
+_ATTEMPTS = 6
 _LAUNCH_SLACK_US = 10.0
 
 

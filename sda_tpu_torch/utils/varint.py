@@ -24,17 +24,17 @@ import numpy as np
 _U64_MASK = (1 << 64) - 1
 
 _UNLOADED = object()
-# the native library (native/varint.cpp, chacha.cpp, sealed_batch.cpp) once
-# loaded, None when it cannot be built or loaded; set to None to force the
-# numpy codec and the sequential open
+# the native library (sda_tpu_torch.ops.native_build) once loaded, None when
+# it cannot be built or loaded; set to None to force the numpy codec and the
+# numpy ChaCha expansion (the sealed boxes bind it through sodium._lib)
 _NATIVE = _UNLOADED
 
 
 def native_library():
-    """The native fast path, built from ``native/`` on first use
+    """The native fast path, built on first use
     (:mod:`sda_tpu_torch.ops.native_build`), or ``None`` where it cannot be
-    built or loaded: then the numpy codec and the sequential open run, as
-    in the reference without its library."""
+    built or loaded: then the numpy codec runs, as in the reference without
+    its library."""
     global _NATIVE
     if _NATIVE is _UNLOADED:
         from sda_tpu_torch.ops.native_build import load_native_library

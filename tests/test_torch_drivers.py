@@ -133,3 +133,5 @@ def test_card_entry_points_raise_without_a_card(no_card):
         bench_scaling.main(["--devices", "1"])
     with pytest.raises(RuntimeError, match="CUDA devices"):
         spawn_ranks(graft_entry._dryrun_rank, 2, (2, "cuda"), "cuda")
+    with pytest.raises(RuntimeError, match="CUDA devices"):  # the card unless asked for the CPU
+        spawn_ranks(graft_entry._dryrun_rank, 1, (1, "cuda"))

@@ -51,6 +51,18 @@ def test_port_imports_no_jax_and_no_reference():
     assert count >= 55  # every submodule of the slices was imported
 
 
+def test_port_binds_no_libsodium():
+    """The port carries its own sealed boxes and signatures: no file of the
+    package names libsodium's shared object or loads a library at run time
+    with dlopen."""
+    files = [p for p in (ROOT / "sda_tpu_torch").rglob("*")
+             if p.is_file() and p.suffix in (".py", ".cpp", ".cu", ".h")]
+    assert any(p.name == "nacl.cpp" for p in files)
+    bad = [str(p.relative_to(ROOT)) for p in files
+           if "libsodium.so" in p.read_text() or "dlopen" in p.read_text()]
+    assert not bad, bad
+
+
 def test_port_imports_without_requests_or_pymongo():
     """The HTTP proxy imports ``requests`` and the Mongo store ``pymongo``
     only when one is built: with both unimportable, every submodule still

@@ -469,3 +469,21 @@ def test_philox_call_ops_read_the_mode_s_generator_loop(monkeypatch):
     monkeypatch.setattr(sass, "sass_listing", lambda *a: {"MT5": twice})
     with pytest.raises(AssertionError, match="found 2 sum-mode Philox loops"):
         chip_smoke._philox_call_ops(plan("sum"))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (1000, 64, 136), (333334, 64, 136), (1024, 63, 130)])
+def test_int_mm_operands_pad_rows_to_32(m, k, n):
+    """The card's int8 matmul pads its operands to more than 16 rows in a
+    multiple of 32 and K, N to multiples of 8: cuBLASLt refused 1,000 and
+    333,336 rows (the participant's share_mxu at 1,000,002 dimensions) on
+    the H100. The zero padding leaves the product as it is."""
+    mp, kp, np_ = t_mxu._int_mm_shape(m, k, n)
+    assert mp >= max(m, 32) and mp % 32 == 0 and mp - m < 32
+    assert kp >= k and kp % 8 == 0 and kp - k < 8 and np_ >= n and np_ % 8 == 0 and np_ - n < 8
+    rng = np.random.default_rng(m)
+    a = torch.as_tensor(rng.integers(-128, 128, size=(min(m, 40), k), dtype=np.int8))
+    b = torch.as_tensor(rng.integers(-128, 128, size=(k, n), dtype=np.int8))
+    pad_a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - a.shape[0]))
+    pad_b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    want = a.to(torch.int64) @ b.to(torch.int64)
+    assert torch.equal(t_mxu._int8_matmul(pad_a, pad_b)[: a.shape[0], :n], want)
