@@ -177,29 +177,41 @@ Phases, each of which raises on failure:
     reconstruction on the card; build, ingest, snapshot, drain and reveal
     on the host clock, the wire's MB; then B5 alone at pass A's reveal
     shape;
-23. cli: the README walkthrough as processes (``server_cli httpd`` and 23
+23. tolerance: the degraded committee (``TOLERANCE``), one pass of the loop
+    at 4 participants x 1,000,002 under ChaCha masking, every client on the
+    bulk route, over HTTP: participant 0's participation uploaded twice and
+    counted once; one byte of participant 3's box for clerk 7 flipped, so
+    clerk 7's fused native open + combine raises ``Invalid``, stores no
+    result and its job stays pollable; after clerks 0-5, 6 results and
+    ``result_ready`` False, the reveal refused; after clerk 6, 7 results and
+    ready; the reveal exact through the recipient's subset branch (0-6) on
+    the card, with B4 x 1 (4 seeds: the chunk route); a clerk key with a
+    forged signature refused at 1,002 dimensions; then the subset against
+    the full-set reconstruction and the chunk against the fused ChaCha
+    route at the reveal's shape, with CUDA events;
+24. cli: the README walkthrough as processes (``server_cli httpd`` and 23
     ``sda_tpu_torch.cli`` calls), reveal ``0 2 2 4 4 6 6 8 8 10``;
-24. tool combine crossover: ``tools.measure_combine_crossover.measure()``
+25. tool combine crossover: ``tools.measure_combine_crossover.measure()``
     on the card, the fused native route against the streamed device route
     at the tool's four shapes, written to
     ``build/measurements/CROSSOVER.json``;
-25. breakdown: ``utils.profiling.device_breakdown`` of the headline step
+26. breakdown: ``utils.profiling.device_breakdown`` of the headline step
     (B1 x 1) and of the mesh's gen-4 step in a world of one (B1 x 2), at
     the end of the script: each kernel's count of device activities a
     multiple of the calls traced and B1's equal to the launch counters',
     the kernels' sum against the step's CUDA-event time, and beside it
     what a plain profiler session (no throwaway session before it) recorded;
-26. roofline: ``sda_tpu_torch.tools.bench_roofline.measure()`` at the
+27. roofline: ``sda_tpu_torch.tools.bench_roofline.measure()`` at the
     headline's width with the breakdown: the full pipeline and
     combine-only B1 launches, reveals checked, counted, timed beside the
     headline phase, the full pipeline's bound equal to the headline's;
-27. chacha native: ``chacha.expand_masks``'s route on the card's host and
+28. chacha native: ``chacha.expand_masks``'s route on the card's host and
     the native expansion against numpy's, bit-equal, at 64 seeds x
     1,000,002 (p = 2^63 - 871) and 4 seeds x 4,096 (p = 2^62 + 1, about
     1/4 of the draws rejected), both on the host clock;
-28. example: ``examples/bulk_aggregation_torch.py``'s ``main`` at its
+29. example: ``examples/bulk_aggregation_torch.py``'s ``main`` at its
     defaults on the card (torch CIOS, no kernel), its reveal exact;
-29. scaling artifact: ``tools.make_scaling_artifact.compose`` on the
+30. scaling artifact: ``tools.make_scaling_artifact.compose`` on the
     ``drivers:`` phase's own config-5 row: the projection onto 8 (and 4)
     cards, labelled projected, written to ``build/measurements/``.
 
@@ -329,6 +341,18 @@ FULL_LOOP = {"A": dict(dimension=1_002, participants=1_000, masking="chacha", wo
                        all_bulk=False),
              "B": dict(dimension=1_000_002, participants=8, masking="none", workers=4,
                        all_bulk=True)}
+# the degraded committee, in one full-width loop over HTTP: participant 0
+# uploads twice, participant 3's box for clerk 7 has one byte flipped, clerks
+# 0-5 drain (6 results: not ready), then clerk 6 (7 results: the
+# reconstruction threshold t + k), the reveal takes the recipient's subset
+# branch; then a clerk key with a forged signature at 1,002 dimensions
+TOLERANCE = dict(dimension=1_000_002, participants=4, masking="chacha", workers=4,
+                 all_bulk=True, stages=((0, 1, 2, 3, 4, 5), (6,)), tamper=(3, 7), retry=0,
+                 forged_dimension=1_002)
+# the reveal folds 4 seeds: below the 512 seeds from which combine_masks_device
+# takes B5 (the rule of sda_tpu/ops/chacha_kernel.py:457 too), so its ChaCha
+# combine is the chunk route, one B4 launch
+TOLERANCE_LAUNCHES = {"chacha_keystream": 1}
 # the README walkthrough: its reveal
 CLI_REVEAL = "0 2 2 4 4 6 6 8 8 10"
 
@@ -2852,7 +2876,8 @@ def phase_crypto():
 
 
 def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
-               all_bulk: bool) -> dict:
+               all_bulk: bool, stages=None, tamper=None, retry=None, forged_dimension=None,
+               device=None) -> dict:
     """One pass of ``bench.py:_bench_system_e2e``'s ``run_loop`` on the port:
     a recipient, 8 clerks (``device_bulk_threshold=1``, the bulk route) on a
     deterministic committee and up to 8 participant agents, packed Shamir
@@ -2862,7 +2887,20 @@ def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
     takes the bulk route: the participants share with ``share_mxu`` and the
     recipient reconstructs on the card. Build, ingest, snapshot, drain and
     reveal on the host clock; the reveal's launches, the clerks' combine
-    routes and the devices of the clients' engines."""
+    routes and the devices of the clients' engines.
+
+    The degraded committee (``TOLERANCE``): ``retry`` is a participant whose
+    participation is uploaded twice; ``tamper`` = (participant, clerk) flips
+    one byte of that participant's box for that clerk before the upload,
+    and the clerk then processes its job once (it must raise ``Invalid``)
+    and polls it again; ``stages`` are the committee indices that drain,
+    stage by stage (all 8 at once by default), each followed by the
+    snapshot's status and, while it is not ready, a refused reveal;
+    ``forged_dimension`` adds an aggregation of that width whose last clerk
+    key carries a signature with one bit flipped, at which a participation
+    must be refused. ``device`` is every client's device (the card unless
+    ``"cpu"``). Only the ``Invalid`` of a refusal is caught; its type and
+    message are returned for ``_tolerance_failures``."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -2873,20 +2911,43 @@ def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
     from sda_tpu_torch import client as client_mod
     from sda_tpu_torch import protocol as proto
     from sda_tpu_torch.client import Keystore, MemoryStore, SdaClient, new_agent
+    from sda_tpu_torch.client.crypto import ShareDecryptor
     from sda_tpu_torch.fields import find_special_prime_field
     from sda_tpu_torch.http import HttpSdaService, serve_background
     from sda_tpu_torch.server import new_jsondir_server
+    from sda_tpu_torch.utils.errors import Invalid
+
+    def refused(fn) -> str | None:
+        """The message of the ``Invalid`` that ``fn`` raises, else None."""
+        try:
+            fn()
+        except Invalid as e:
+            return f"{type(e).__name__}: {e}"
+        return None
 
     p, w2, w3 = find_special_prime_field(63, 8, 9)
-    scheme = (proto.ChaChaMasking(modulus=p, dimension=dimension, seed_bitsize=128)
-              if masking == "chacha" else proto.NoMasking())
+    sharing = proto.PackedShamirSharing(secret_count=3, share_count=8, privacy_threshold=4,
+                                        prime_modulus=p, omega_secrets=w2, omega_shares=w3)
+
+    def masking_scheme(d: int):
+        return (proto.ChaChaMasking(modulus=p, dimension=d, seed_bitsize=128)
+                if masking == "chacha" else proto.NoMasking())
+
+    stages = stages or (tuple(range(8)),)
     tmp = tempfile.mkdtemp(prefix="sda-loop-")
     try:
         with serve_background(new_jsondir_server(tmp)) as url:
             def mk(threshold=None):
                 ks = Keystore(MemoryStore())
                 return SdaClient(new_agent(ks), ks, HttpSdaService(url, MemoryStore()),
-                                 device_bulk_threshold=threshold)
+                                 device_bulk_threshold=threshold, device=device)
+
+            def status():
+                st = recipient.service.get_aggregation_status(recipient.agent, agg.id)
+                snap = st.snapshots[0] if st.snapshots else None
+                return {"participations": st.number_of_participations,
+                        "results": snap.number_of_clerking_results if snap else None,
+                        "ready": snap.result_ready if snap else None}
 
             bulk = 1 if all_bulk else None
             recipient = mk(bulk)
@@ -2895,10 +2956,8 @@ def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
             recipient.upload_encryption_key(rkey)
             agg = proto.Aggregation(
                 id=proto.new_id(), title="full loop", vector_dimension=dimension, modulus=p,
-                recipient=recipient.agent.id, recipient_key=rkey, masking_scheme=scheme,
-                committee_sharing_scheme=proto.PackedShamirSharing(
-                    secret_count=3, share_count=8, privacy_threshold=4, prime_modulus=p,
-                    omega_secrets=w2, omega_shares=w3),
+                recipient=recipient.agent.id, recipient_key=rkey,
+                masking_scheme=masking_scheme(dimension), committee_sharing_scheme=sharing,
             )
             recipient.upload_aggregation(agg)
             clerks = [mk(1) for _ in range(8)]
@@ -2932,23 +2991,118 @@ def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
             wire = sum(len(e.data) for part in parts for _, e in part.clerk_encryptions)
             wire += sum(len(part.recipient_encryption.data) for part in parts
                         if part.recipient_encryption is not None)
+            tampered = None
+            if tamper is not None:
+                who, ci = tamper
+                encs = list(parts[who].clerk_encryptions)
+                clerk_id, enc = encs[ci]
+                data = bytearray(enc.data)
+                data[len(data) // 2] ^= 0xFF
+                encs[ci] = (clerk_id, proto.Encryption(data=bytes(data)))
+                tampered = {"clerk": ci, "box": bytes(data), "original": enc.data}
+                parts[who] = dataclasses.replace(parts[who], clerk_encryptions=tuple(encs))
             _, t_ingest = run(lambda i: agents[i % len(agents)].upload_participation(parts[i]))
+            t_retry = None
+            if retry is not None:
+                t0 = time.perf_counter()
+                agents[retry % len(agents)].upload_participation(parts[retry])
+                t_retry = time.perf_counter() - t0
             t0 = time.perf_counter()
             recipient.end_aggregation(agg.id)
             t_snapshot = time.perf_counter() - t0
+            after_snapshot = status()
 
             before = dict(client_mod.combine_routes)
-            t0 = time.perf_counter()
-            drained = sum(1 for c in clerks for _ in iter(c.clerk_once, False))
-            t_drain = time.perf_counter() - t0
+            if tampered is not None:
+                clerk = clerks[tampered["clerk"]]
+                t0 = time.perf_counter()
+                job = clerk.service.get_clerking_job(clerk.agent, clerk.agent.id)
+                opened = []
+                real_open = ShareDecryptor.open_combine
+
+                def traced_open(self, *a, **kw):
+                    opened.append(1)
+                    return real_open(self, *a, **kw)
+
+                ShareDecryptor.open_combine = traced_open
+                try:
+                    error = refused(lambda: clerk.process_clerking_job(job))
+                finally:
+                    ShareDecryptor.open_combine = real_open
+                again = clerk.service.get_clerking_job(clerk.agent, clerk.agent.id)
+                tampered.update(
+                    s=time.perf_counter() - t0, error=error, fused_calls=len(opened),
+                    job=job.id, polled_again=again.id if again is not None else None,
+                    boxes=sum(e.data == tampered["box"] for e in job.encryptions),
+                    after=status())
+
+            drain = []
+            t_drain = 0.0
+            drained = 0
+            for stage in stages:
+                t0 = time.perf_counter()
+                n = sum(1 for i in stage for _ in iter(clerks[i].clerk_once, False))
+                s_stage = time.perf_counter() - t0
+                t_drain += s_stage
+                drained += n
+                st = status()
+                st.update(clerks=tuple(stage), drained=n, s=s_stage, refused=None)
+                if not st["ready"]:
+                    st["refused"] = refused(lambda: recipient.reveal_aggregation(agg.id))
+                drain.append(st)
             routes = {k: n - before[k] for k, n in client_mod.combine_routes.items()}
 
+            reconstructions = []
+            real_reconstruct = recipient._device_reconstruct
+
+            def traced_reconstruct(scheme, indexed_shares, dim):
+                reconstructions.append({"indices": [i for i, _ in sorted(
+                    indexed_shares, key=lambda t: t[0])], "scheme": scheme,
+                    "shares": list(indexed_shares)})
+                return real_reconstruct(scheme, indexed_shares, dim)
+
+            recipient._device_reconstruct = traced_reconstruct
             _reset_counts()
             t0 = time.perf_counter()
             revealed = recipient.reveal_aggregation(agg.id).positive()
-            torch.cuda.synchronize()
+            if torch.device(device or DEVICE).type == "cuda":
+                torch.cuda.synchronize()
             t_reveal = time.perf_counter() - t0
             launches = {**_counts(), **_chacha_counts()}
+
+            if tampered is not None:
+                # the tampered clerk's own combined share over the boxes as
+                # they were sealed, for the full-set reconstruction
+                clerk = clerks[tampered["clerk"]]
+                job = clerk.service.get_clerking_job(clerk.agent, clerk.agent.id)
+                boxes = [proto.Encryption(data=tampered["original"])
+                         if e.data == tampered["box"] else e for e in job.encryptions]
+                decryptor = clerk.crypto.new_share_decryptor(keys[tampered["clerk"]],
+                                                             agg.committee_encryption_scheme)
+                tampered["share"] = decryptor.open_combine(boxes, p, -(-dimension // 3))
+                tampered["still_polled"] = job.id
+
+            forged = None
+            if forged_dimension is not None:
+                forger = mk(1)
+                forger.upload_agent()
+                key_id = forger.crypto.new_encryption_key()
+                signed = forger.crypto.sign_export(forger.agent, key_id)
+                sig = bytearray(signed.signature.data)
+                sig[0] ^= 0x01
+                forger.service.create_encryption_key(forger.agent, proto.Signed(
+                    signature=proto.Signature(bytes(sig)), signer=signed.signer,
+                    body=signed.body))
+                agg2 = dataclasses.replace(agg, id=proto.new_id(), title="forged key",
+                                           vector_dimension=forged_dimension,
+                                           masking_scheme=masking_scheme(forged_dimension))
+                recipient.upload_aggregation(agg2)
+                recipient.service.create_committee(recipient.agent, proto.Committee(
+                    aggregation=agg2.id,
+                    clerks_and_keys=tuple((c.agent.id, k) for c, k in zip(clerks[:7], keys))
+                    + ((forger.agent.id, key_id),)))
+                forged = refused(lambda: agents[0].new_participation(
+                    secrets[0, :forged_dimension], agg2.id))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {
@@ -2961,7 +3115,9 @@ def _loop_pass(dimension: int, participants: int, masking: str, workers: int,
         "s": {"build": t_build, "ingest": t_ingest, "snapshot": t_snapshot,
               "drain": t_drain, "reveal": t_reveal},
         "wire_mb": wire / 1e6, "participants": participants,
-        "dimension": dimension,
+        "dimension": dimension, "after_snapshot": after_snapshot, "retry_s": t_retry,
+        "tampered": tampered, "stages": drain, "reconstructions": reconstructions,
+        "forged": forged, "recipient": recipient, "modulus": p,
     }
 
 
@@ -3005,6 +3161,151 @@ def phase_full_loop():
     keys = ck._key_tensor(seeds, torch.device(DEVICE))
     out["b5"] = cuda_time(lambda i: ck._launch_fold(keys, cfg["dimension"], p), iters=20)
     return out
+
+
+def _tolerance_failures(r: dict, cfg: dict) -> list[str]:
+    """What a ``_loop_pass`` run of the degraded committee (``cfg``, as
+    ``TOLERANCE``) got wrong, on any device: the retried participation
+    counted once; the tampered clerk's job refused by the fused native open +
+    combine with ``Invalid``, no result stored, the job polled again under
+    its id; each stage's results and readiness, the not-ready reveal
+    refused; the reveal exact through the recipient's subset branch of the
+    drained clerks; the forged key refused."""
+    wrong = []
+
+    def want(got, expected, what: str):
+        if got != expected:
+            wrong.append(f"{what}: {got!r}, not {expected!r}")
+
+    want(r["after_snapshot"]["participations"], cfg["participants"],
+         "participations after the retry")
+    t = r["tampered"]
+    want(t["error"], "Invalid: sodium seal_open failure (tampered or wrong key)",
+         "the tampered clerk's job")
+    want(t["fused_calls"], 1, "the tampered job's fused open + combine calls")
+    want(t["boxes"], 1, "tampered boxes in the job")
+    want(t["after"]["results"], 0, "results stored after the tampered job")
+    want(t["polled_again"], t["job"], "the tampered job polled again")
+    want(t["still_polled"], t["job"], "the tampered job polled after the reveal")
+    drained = []
+    threshold = 7  # t + k of packed Shamir 3/8/4
+    for st, stage in zip(r["stages"], cfg["stages"]):
+        drained += stage
+        n = len(drained)
+        want(st["drained"], len(stage), f"jobs drained by clerks {stage}")
+        want((st["results"], st["ready"]), (n, n >= threshold), f"the snapshot after {n} results")
+        want(st["refused"], None if n >= threshold else "Invalid: Aggregation not ready",
+             f"the reveal at {n} results")
+    want(r["routes"], {"fused": len(drained), "device": 0, "sequential": 0},
+         "the drained jobs' combine routes")
+    want(r["exact"], True, "the reveal equals the sum mod p")
+    want([c["indices"] for c in r["reconstructions"]], [sorted(drained)],
+         "the recipient's device reconstruction")
+    want(r["forged"], "Invalid: Signature verification failed for key",
+         f"the participation at {cfg['forged_dimension']:,} with a forged clerk key")
+    return wrong
+
+
+def phase_tolerance():
+    """The degraded committee on the card (``TOLERANCE``): 4 participants x
+    1,000,002 under ChaCha masking, every client on the bulk route, over
+    HTTP. It fails unless every ``_tolerance_failures`` check holds, the
+    reveal launched ``TOLERANCE_LAUNCHES`` and the sharing and the
+    reconstruction ran on the card. Then, with CUDA events on the same
+    combined shares, the subset reconstruction (``modmat`` on the 7 drained
+    clerks' Lagrange matrix) against the full set (``engine.reconstruct``
+    with the tampered clerk's own combined share), their outputs equal; and
+    the reveal's ChaCha combine at 4 seeds on the chunk route (B4) against
+    the fused route (B5 and its fix-up), their results equal."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.ops.modmat import modmat
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    cfg = TOLERANCE
+    t0 = time.perf_counter()
+    r = _loop_pass(**cfg)
+    r["s_all"] = time.perf_counter() - t0
+    wrong = _tolerance_failures(r, cfg)
+    if r["launches"] != TOLERANCE_LAUNCHES:
+        wrong.append(f"the reveal launched {r['launches']}, not {TOLERANCE_LAUNCHES}")
+    on = [torch.device(DEVICE).type]
+    if r["engines"] != {"sharing": on, "reconstruction": on}:
+        wrong.append(f"engines on {r['engines']}, not {on}")
+    if wrong:
+        raise AssertionError("tolerance: " + "; ".join(wrong))
+
+    rec = r["reconstructions"][0]
+    scheme, d, p = rec["scheme"], cfg["dimension"], r["modulus"]
+    eng = r["recipient"]._bulk_engine(scheme, d)
+    sub = sorted(rec["shares"], key=lambda t: t[0])
+    full = sorted(sub + [(r["tampered"]["clerk"], r["tampered"]["share"])], key=lambda t: t[0])
+
+    def limbs(shares):
+        return eng.ctx.encode_i64(np.asarray([v for _, v in shares], dtype=np.int64).T,
+                                  eng.device)
+
+    a_sub, a_full = limbs(sub), limbs(full)
+    mat = eng.ctx.encode_mont(np.asarray(scheme.reconstruct_matrix([i for i, _ in sub]),
+                                         dtype=object), eng.device)
+    if not torch.equal(modmat(eng.ctx, a_sub, mat), eng.reconstruct(a_full)):
+        raise AssertionError("tolerance: the subset and the full-set reconstruction differ")
+    r["subset"] = cuda_time(lambda i: modmat(eng.ctx, a_sub, mat), iters=10)
+    r["full"] = cuda_time(lambda i: eng.reconstruct(a_full), iters=10)
+    r["rows"] = int(a_sub.shape[0])
+
+    rng = np.random.default_rng(74)
+    seeds = [chacha.new_seed(128, rng) for _ in range(cfg["participants"])]
+    dev = torch.device(DEVICE)
+    chunk = np.asarray(ck.combine_masks_device(seeds, d, p, device=DEVICE)[0], dtype=np.int64)
+    fused = np.asarray(ck._combine_fused(seeds, d, p, True, dev)[0], dtype=np.int64)
+    if not np.array_equal(chunk, fused):
+        raise AssertionError("tolerance: B4's chunk route and B5's fused route differ at 4 seeds")
+    r["chunk_route"] = cuda_time(lambda i: ck.combine_masks_device(seeds, d, p, device=DEVICE),
+                                 iters=5)
+    r["fused_route"] = cuda_time(lambda i: ck._combine_fused(seeds, d, p, True, dev), iters=5)
+    return r
+
+
+def _tolerance_lines(r: dict, card: str) -> list[str]:
+    cfg, s, t = TOLERANCE, r["s"], r["tampered"]
+    st = r["stages"]
+    stages = ", ".join(f"clerks {c['clerks'][0]}-{c['clerks'][-1]} {c['s']:.3f} s"
+                       if len(c["clerks"]) > 1 else f"clerk {c['clerks'][0]} {c['s']:.3f} s"
+                       for c in st)
+    launches = ", ".join(f"{k} x {n}" for k, n in r["launches"].items())
+
+    def timed(x) -> str:
+        return f"median {x.median_ms:.4f} ms (min {x.min_ms:.4f}, max {x.max_ms:.4f})"
+
+    return [
+        f"tolerance: {cfg['participants']} participants x {cfg['dimension']:,} "
+        f"({cfg['masking']} masking, packed Shamir 3/8/4 at 2^63 - 871, 8 clerks, every client "
+        f"on the bulk route, {cfg['workers']} workers) over HTTP (jsondir store) on {card}: "
+        f"build {s['build']:.3f} s, ingest {s['ingest']:.3f} s, retry "
+        f"{r['retry_s'] * 1e3:.1f} ms, snapshot {s['snapshot'] * 1e3:.1f} ms, tampered clerk "
+        f"{t['s'] * 1e3:.1f} ms, {stages}, reveal {s['reveal'] * 1e3:.1f} ms; wire "
+        f"{r['wire_mb']:.3f} MB; {r['s_all']:.1f} s in all",
+        f"tolerance: checks on {card}: participant 0's retry counted once "
+        f"({r['after_snapshot']['participations']} participations); clerk {t['clerk']}'s job on "
+        f"the fused native open + combine raised {t['error']}, {t['after']['results']} results "
+        f"stored, job {t['job'][:8]} polled again; {st[0]['results']} results: result_ready "
+        f"{st[0]['ready']}, reveal raised {st[0]['refused']}; {st[1]['results']} results: "
+        f"result_ready {st[1]['ready']}; reveal exact through the subset branch "
+        f"{r['reconstructions'][0]['indices']} on {r['engines']['reconstruction'][0]}, sharing "
+        f"on {r['engines']['sharing'][0]} (share_mxu); the reveal launched {launches} "
+        f"(4 seeds: the chunk route; B5 x {r['launches'].get('chacha_fold', 0)}); forged clerk "
+        f"key at {cfg['forged_dimension']:,}: {r['forged']}; all pass",
+        f"tolerance: reconstruction at {r['rows']:,} rows on {card}, CUDA events, same combined "
+        f"shares: subset (7 of 8, modmat on the subset's Lagrange matrix) {timed(r['subset'])}; "
+        f"full set (engine.reconstruct, 8) {timed(r['full'])}; outputs equal; the reveal's "
+        f"ChaCha combine at {cfg['participants']} seeds x {cfg['dimension']:,}: chunk route "
+        f"(B4 + torch, the call) {timed(r['chunk_route'])}, fused route (B5 + fix-up, the call) "
+        f"{timed(r['fused_route'])}, equal",
+    ]
 
 
 def phase_cli():
@@ -3459,6 +3760,9 @@ def main() -> int:
     fl = phase_full_loop()
     for line in _loop_lines(fl, card):
         print(line, flush=True)
+    tl = phase_tolerance()
+    for line in _tolerance_lines(tl, card):
+        print(line, flush=True)
     print(_cli_line(phase_cli(), card), flush=True)
     print(_crossover_line(phase_crossover(), card, root), flush=True)
 
@@ -3604,6 +3908,9 @@ def main() -> int:
             "library_ms": None,
             "shape": ch["shape"],
             "chunk_route_host_ms": ch["host_ms"],
+            "tolerance_launches": tl["launches"].get("chacha_keystream", 0),
+            "tolerance_shape": f"S={TOLERANCE['participants']} d={TOLERANCE['dimension']}",
+            "tolerance_route_ms": tl["chunk_route"].median_ms,
         },
         {
             "name": "chacha_fold",
@@ -3631,6 +3938,8 @@ def main() -> int:
             "loop_shape": f"S={FULL_LOOP['A']['participants']} d={FULL_LOOP['A']['dimension']}",
             "loop_ms": fl["b5"].median_ms,
             "loop_reveal_host_ms": fl["A"]["s"]["reveal"] * 1e3,
+            "tolerance_launches": tl["launches"].get("chacha_fold", 0),
+            "tolerance_route_ms": tl["fused_route"].median_ms,
         },
         {
             "name": "mxu7_fused",

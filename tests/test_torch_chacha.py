@@ -94,6 +94,29 @@ def test_expand_masks_matches_reference(modulus):
                           ref_chacha.expand_masks_noskip(seeds, 33, modulus))
 
 
+def test_chacha_core_matches_public_djb_vectors():
+    """The first two keystream blocks of the all-zero key, zero counter:
+    D. J. Bernstein's published ChaCha20 test vector, byte for byte."""
+    r = chacha.ChaChaRng([0] * 8)
+    stream = b"".join(int(r.next_u32()).to_bytes(4, "little") for _ in range(32))
+    assert stream[:64].hex() == (
+        "76b8e0ada0f13d90405d6ae55386bd28bdd219b8a08ded1aa836efcc8b770dc7"
+        "da41597c5157488d7724e03fb8d84a376a43b8f41518a11cc387b669b2ee6586")
+    assert stream[64:128].hex() == (
+        "9f07e7be5551387a98ba977c732d080dcb0f29a048e3656912c6533e32ee7aed"
+        "29b721769ce64e43d57133b074d839d531ed1f28510afb45ace10a1f4b794d6f")
+
+
+def test_expand_masks_matches_the_scalar_generator():
+    """Each row of the batch expansion is the scalar generator's
+    ``gen_range_i64(0, m)`` draws from the same seed."""
+    seeds = _seeds(5, seed=4)
+    batch = chacha.expand_masks(seeds, 33, 433)
+    for row, words in zip(batch, seeds):
+        rng = chacha.ChaChaRng(words)
+        assert row.tolist() == [rng.gen_range_i64(0, 433) for _ in range(33)]
+
+
 def test_new_seed_from_a_generator_is_reproducible():
     a = chacha.new_seed(128, np.random.default_rng(3))
     assert a == chacha.new_seed(128, np.random.default_rng(3))

@@ -5,7 +5,9 @@ Mirrors the reference's own loop tests through ``sda_tpu_torch`` on the CPU
 
 - ``tests/test_full_loop.py``: recipient + 8 clerks + 2 participants each
   contributing ``[1, 2, 3, 4]`` reveal ``[2, 4, 6, 8]`` under the four
-  scheme configurations, on the memory and the JSON-directory stores;
+  scheme configurations, on the memory and the JSON-directory stores and
+  over HTTP, the verified-key cache and the idempotent end of an
+  aggregation;
 - ``tests/test_engine.py:316-411``: the clerks' device combine, the
   recipient's device ChaCha reveal and reconstruction, the participants'
   device share generation;
@@ -45,6 +47,9 @@ CONFIGS = {
 
 
 def make_client(service, **kw) -> SdaClient:
+    # an HTTP proxy carries one agent's auth token: each client its own
+    if hasattr(service, "clone_fresh"):
+        service = service.clone_fresh()
     keystore = Keystore(MemoryStore())
     return SdaClient(new_agent(keystore), keystore, service, device="cpu", **kw)
 
@@ -99,6 +104,62 @@ def run_loop(service, config, clerk_kw=(), recipient_kw=(), participant_kw=()):
 def test_full_loop(config, store, tmp_path):
     service = new_memory_server() if store == "memory" else new_jsondir_server(str(tmp_path))
     assert run_loop(service, config) == [2, 4, 6, 8]
+
+
+@pytest.mark.parametrize("config", ["simple", "with_packedshamir"])
+def test_full_loop_over_http(config):
+    """The same loop over the port's REST transport (a port server over a
+    jsondir store)."""
+    from .test_torch_failure_tolerance import with_service
+
+    with with_service("http") as service:
+        assert run_loop(service, config) == [2, 4, 6, 8]
+
+
+def test_verified_key_cache_skips_refetch_and_never_caches_failures():
+    """A (owner, key) pair that verified once is not fetched again; a failed
+    verification is retried on every call and never cached."""
+    service = new_memory_server()
+    owner = make_client(service)
+    key_id = owner.new_encryption_key()
+    owner.upload_agent()
+    owner.upload_encryption_key(key_id)
+    user = make_client(service)
+    calls = []
+    real_get = user.service.get_encryption_key
+    user.service.get_encryption_key = lambda caller, kid: calls.append(kid) or real_get(caller, kid)
+    first = user._verified_encryption_key(owner.agent.id, key_id)
+    assert calls == [key_id]
+    assert user._verified_encryption_key(owner.agent.id, key_id) is first
+    assert calls == [key_id]
+    bad = make_client(service)
+    bad_calls = []
+    bad.service.get_encryption_key = (
+        lambda caller, kid: bad_calls.append(kid) or real_get(caller, kid))
+    bad.crypto.signature_is_valid = lambda *_: False
+    for _ in range(2):
+        with pytest.raises(Invalid, match="^Signature verification failed for key$"):
+            bad._verified_encryption_key(owner.agent.id, key_id)
+    assert len(bad_calls) == 2 and not bad._verified_keys
+
+
+def test_end_aggregation_idempotent():
+    """A second end_aggregation makes no second snapshot."""
+    service = new_memory_server()
+    recipient = make_client(service)
+    key = recipient.new_encryption_key()
+    recipient.upload_agent()
+    recipient.upload_encryption_key(key)
+    agg = agg_default(recipient.agent.id, key)
+    recipient.upload_aggregation(agg)
+    for c in [make_client(service) for _ in range(3)]:
+        ck = c.new_encryption_key()
+        c.upload_agent()
+        c.upload_encryption_key(ck)
+    recipient.begin_aggregation(agg.id)
+    recipient.end_aggregation(agg.id)
+    recipient.end_aggregation(agg.id)
+    assert len(service.get_aggregation_status(recipient.agent, agg.id).snapshots) == 1
 
 
 def test_client_device_bulk_combine_full_loop():

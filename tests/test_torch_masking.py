@@ -165,6 +165,33 @@ def test_full_masker_matches_reference(modulus):
         secrets.tolist())
 
 
+def test_full_masker_roundtrip_and_aggregation_property():
+    """The pad stays inside (-m, m) and unmasks to the secrets; the sum of
+    two masked vectors minus the combined masks is the sum of the secrets
+    (the reference's [11, 22, 33, 44])."""
+    m = FullMasker(433, device="cpu")
+    mask, masked = m.mask(np.array([0, 1, 432, 100]))
+    assert (np.abs(masked) < 433).all()
+    assert positive(m.unmask((mask, masked)), 433).tolist() == [0, 1, 432, 100]
+    k1, m1 = m.mask(np.array([1, 2, 3, 4]))
+    k2, m2 = m.mask(np.array([10, 20, 30, 40]))
+    masked_sum = trunc_add_mod(np.asarray(m1, dtype=np.int64), np.asarray(m2, dtype=np.int64),
+                               433)
+    out = m.unmask((m.combine([k1, k2]), masked_sum))
+    assert positive(out, 433).tolist() == [11, 22, 33, 44]
+
+
+def test_chacha_masker_uploads_seed_not_mask():
+    """The mask a participant uploads is its 128-bit seed (4 words), which
+    the combine re-expands; a vector of the wrong length is refused."""
+    m = ChaChaMasker(modulus=433, dimension=50, seed_bitsize=128, device="cpu")
+    seed, masked = m.mask(np.arange(50))
+    assert len(seed) == 4
+    assert positive(m.unmask((m.combine([seed]), masked)), 433).tolist() == list(range(50))
+    with pytest.raises(Invalid):
+        m.mask(np.arange(49))
+
+
 def test_full_masker_out_of_domain_wire_masks_match_reference():
     p = 10_007
     masks = [np.array([-(1 << 62), 5, (1 << 62) + 3, -7], dtype=np.int64),

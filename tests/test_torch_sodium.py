@@ -15,6 +15,10 @@ which the reference binds (``sda_tpu.sodium`` and its ``_lib()``):
   or past p, all-zero keys, bit flips;
 - the batch open and the fused open + combine equal to the sequential path
   on one clerk job;
+- the rest of ``tests/test_crypto_host.py``: tamper and anonymous-sender
+  boxes, signature refusals, the signed key export, the batch open of
+  ragged boxes, the fused open + combine at 2^63 - 871, on an empty job and
+  its error parity with the reference's (type and message);
 - with libsodium refused to the process, the port's loop still reveals.
 """
 
@@ -366,6 +370,160 @@ def test_batch_open_and_open_combine_equal_the_sequential_path():
                  lambda: dec.open_combine(bad, p, 37)):
         with pytest.raises(Invalid):
             call()
+
+
+# ------------------------------------- the rest of tests/test_crypto_host.py
+
+
+def test_sealed_box_roundtrip_tamper_and_anonymous_sender():
+    """A box opens to its message; a flipped last byte or a box one byte
+    shorter than the seal overhead raises Invalid; two seals of one
+    message differ (each has its own ephemeral sender key)."""
+    pk, sk = sodium.box_keypair()
+    msg = b"attack at dawn" * 10
+    boxed = sodium.seal(msg, pk)
+    assert sodium.seal_open(boxed, pk, sk) == msg
+    for bad in (boxed[:-1] + bytes([boxed[-1] ^ 1]), boxed[: sodium.SEALBYTES - 1]):
+        with pytest.raises(Invalid, match="^Sodium decryption failure$"):
+            sodium.seal_open(bad, pk, sk)
+    assert sodium.seal(b"m", pk) != sodium.seal(b"m", pk)
+
+
+def test_sign_verify_detached_refusals():
+    vk, sk = sodium.sign_keypair()
+    sig = sodium.sign_detached(b"payload", sk)
+    assert sodium.verify_detached(sig, b"payload", vk)
+    assert not sodium.verify_detached(sig, b"payloae", vk)
+    assert not sodium.verify_detached(sig, b"payload", sodium.sign_keypair()[0])
+    assert not sodium.verify_detached(b"short", b"payload", vk)
+    assert ref_sodium.verify_detached(sig, b"payload", vk)  # libsodium takes the port's
+
+
+def test_crypto_module_sign_export_verifies():
+    """A signed export verifies for its signer (and in the reference's
+    CryptoModule); a claimed-signer mismatch raises."""
+    from sda_tpu import protocol as ref_proto
+    from sda_tpu.client.crypto import CryptoModule as RefCryptoModule
+    from sda_tpu_torch.client import Keystore, MemoryStore, new_agent
+    from sda_tpu_torch.client.crypto import CryptoModule
+
+    ks = Keystore(MemoryStore())
+    cm = CryptoModule(ks)
+    agent = new_agent(ks)
+    signed = cm.sign_export(agent, cm.new_encryption_key())
+    assert cm.signature_is_valid(agent, signed)
+    assert RefCryptoModule.signature_is_valid(
+        ref_proto.Agent.from_obj(agent.to_obj()),
+        ref_proto.signed_encryption_key_from_obj(signed.to_obj()))
+    with pytest.raises(Invalid, match="^Agent differs from claimed signer$"):
+        cm.signature_is_valid(new_agent(Keystore(MemoryStore())), signed)
+
+
+def _boxes(ek, vectors):
+    return [proto.Encryption(data=sodium.seal(encode_varints(np.asarray(v, dtype=np.int64)), ek))
+            for v in vectors]
+
+
+def _ref_decryptor(ek, dk):
+    from sda_tpu.client.crypto import ShareDecryptor as RefShareDecryptor
+
+    return RefShareDecryptor(ek, dk)
+
+
+def test_decrypt_many_ragged_boxes_match_sequential_and_reference():
+    """Ten boxes of ragged lengths through the native batch: each equal to
+    its vector and to the reference's batch; one tampered box raises."""
+    from sda_tpu import protocol as ref_proto
+
+    ek, dk = sodium.box_keypair()
+    rng = np.random.default_rng(7)
+    vecs = [rng.integers(-(1 << 62), 1 << 62, size=n, dtype=np.int64)
+            for n in (5, 33, 1, 129, 64, 7, 12, 90, 2, 40)]
+    encs = _boxes(ek, vecs)
+    got = ShareDecryptor(ek, dk).decrypt_many(encs)
+    want = _ref_decryptor(ek, dk).decrypt_many([ref_proto.Encryption(data=e.data) for e in encs])
+    assert [g.tolist() for g in got] == [v.tolist() for v in vecs] == [
+        np.asarray(w).tolist() for w in want]
+    evil = list(encs)
+    evil[4] = proto.Encryption(data=encs[4].data[:-1] + bytes([encs[4].data[-1] ^ 1]))
+    with pytest.raises(Invalid, match=r"^sodium seal_open failure \(tampered or wrong key\)$"):
+        ShareDecryptor(ek, dk).decrypt_many(evil)
+
+
+def test_open_combine_at_p63_matches_the_fold_and_the_reference():
+    """25 boxes at p = 2^63 - 871 (one of them negated, as wire shares in
+    the truncated domain are): canonical, equal to the scheme's fold and to
+    the reference's fused open + combine of the same boxes."""
+    from sda_tpu import protocol as ref_proto
+
+    p = (1 << 63) - 871
+    ek, dk = sodium.box_keypair()
+    rng = np.random.default_rng(3)
+    vecs = [rng.integers(0, 1 << 62, size=47, dtype=np.int64) % p for _ in range(25)]
+    vecs[3] = -vecs[3]
+    encs = _boxes(ek, vecs)
+    got = ShareDecryptor(ek, dk).open_combine(encs, p, 47)
+    want = positive(AdditiveScheme(share_count=3, modulus=p).combine(vecs), p)
+    assert got.tolist() == [int(x) for x in want]
+    assert (got >= 0).all() and (got < p).all()
+    ref = _ref_decryptor(ek, dk).open_combine([ref_proto.Encryption(data=e.data) for e in encs],
+                                              p, 47)
+    assert got.tolist() == ref.tolist()
+
+
+def test_open_combine_empty_job_returns_dim_zeros():
+    got = ShareDecryptor(*sodium.box_keypair()).open_combine([], 10_007, 9)
+    assert got.shape == (9,) and got.dtype == np.int64 and not got.any()
+
+
+def _bad_jobs(ek, encs):
+    """(label, job, expected error type, its message) for each way a job is
+    malformed, as the reference's error-parity cases build them."""
+    tampered = list(encs)
+    tampered[2] = proto.Encryption(data=encs[2].data[:-1] + bytes([encs[2].data[-1] ^ 1]))
+    truncated = list(encs)
+    truncated[1] = proto.Encryption(data=sodium.seal(b"\x80\x80", ek))
+    short = list(encs)
+    short[4] = _boxes(ek, [np.arange(5)])[0]
+    long = list(encs)
+    long[3] = _boxes(ek, [np.arange(11)])[0]
+    return {
+        "tampered": (tampered, Invalid, "sodium seal_open failure (tampered or wrong key)"),
+        "malformed varint": (truncated, ValueError, "malformed varint stream"),
+        "short share": (short, Invalid, "Wrong dimension"),
+        "long share": (long, Invalid, "Wrong dimension"),
+    }
+
+
+@pytest.mark.parametrize("case", ["tampered", "malformed varint", "short share", "long share"])
+def test_open_combine_error_parity(case):
+    """A tampered box, a malformed varint stream, and a well-formed stream
+    of fewer or more values than the job's dimension raise the same error
+    type with the same message as the reference's fused open + combine."""
+    from sda_tpu import protocol as ref_proto
+    from sda_tpu.utils.errors import Invalid as RefInvalid
+
+    ek, dk = sodium.box_keypair()
+    encs = _boxes(ek, [np.arange(8)] * 6)
+    job, error, message = _bad_jobs(ek, encs)[case]
+    with pytest.raises(error) as got:
+        ShareDecryptor(ek, dk).open_combine(job, 10_007, 8)
+    assert str(got.value) == message
+    ref_error = RefInvalid if error is Invalid else error
+    with pytest.raises(ref_error) as want:
+        _ref_decryptor(ek, dk).open_combine([ref_proto.Encryption(data=e.data) for e in job],
+                                            10_007, 8)
+    assert str(want.value) == message
+
+
+def test_decrypt_many_error_parity_malformed_varint():
+    """A well-sealed box of a truncated varint stream raises ValueError
+    from the native batch, like the sequential decode."""
+    ek, dk = sodium.box_keypair()
+    encs = _boxes(ek, [np.arange(4)] * 9)
+    encs[5] = proto.Encryption(data=sodium.seal(b"\xff\xff\xff", ek))
+    with pytest.raises(ValueError, match="^malformed varint stream$"):
+        ShareDecryptor(ek, dk).decrypt_many(encs)
 
 
 def test_loop_reveals_with_libsodium_refused():
