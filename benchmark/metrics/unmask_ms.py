@@ -1,0 +1,7 @@
+"""The benchmark's host-clock span around the round's ``unmask`` call,
+closed by a device synchronize, averaged over the traced rounds."""
+
+
+def read(record):
+    spans = record.spans.get("unmask")
+    return sum(spans) / len(spans) * 1e3 if spans else None
