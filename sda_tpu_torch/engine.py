@@ -71,6 +71,7 @@ from sda_tpu_torch.ops.pallas_kernels import (
     planar_from_batched,
 )
 from sda_tpu_torch.sharing import DeviceSchemeSpec
+from sda_tpu_torch.utils.logging import span
 
 __all__ = [
     "TorchAggregationEngine",
@@ -449,18 +450,19 @@ class TorchAggregationEngine:
         key = (matrix, rows, p_count, n_chunks, rand_participants, device)
         plan = self._plans.get(key)
         if plan is None:
-            mxu8, spec = self._require_mxu8(), self.spec
-            if matrix == "reconstruct":
-                # the same modular matmul: p_count=1, slots=n, no randomness
-                plan = mxu8_plan(mxu8, spec.reconstruct_matrix, rows, 1, spec.share_count, 0,
-                                 device=device)
-            else:
-                plan = mxu8_plan(
-                    mxu8, spec.share_matrix, rows, p_count, spec.secret_count,
-                    spec.randomness_count,
-                    reconstruct_matrix=spec.reconstruct_matrix if matrix == "share" else None,
-                    rand_participants=rand_participants, device=device, n_chunks=n_chunks,
-                )
+            with span("sda.mxu8.plan"):
+                mxu8, spec = self._require_mxu8(), self.spec
+                if matrix == "reconstruct":
+                    # the same modular matmul: p_count=1, slots=n, no randomness
+                    plan = mxu8_plan(mxu8, spec.reconstruct_matrix, rows, 1, spec.share_count,
+                                     0, device=device)
+                else:
+                    plan = mxu8_plan(
+                        mxu8, spec.share_matrix, rows, p_count, spec.secret_count,
+                        spec.randomness_count,
+                        reconstruct_matrix=spec.reconstruct_matrix if matrix == "share" else None,
+                        rand_participants=rand_participants, device=device, n_chunks=n_chunks,
+                    )
             self._plans[key] = plan
         return plan
 
@@ -477,8 +479,9 @@ class TorchAggregationEngine:
         """Share + combine + reconstruct in ONE launch of the byte-limb
         kernel; ``sec8`` from :meth:`planar8_secrets`; returns ``[nb, k, L]``
         int32 limbs."""
-        out = self._fused(sec8, seed, p_count, lanes, reconstruct=True)
-        return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
+        with span("sda.engine.aggregate"):
+            out = self._fused(sec8, seed, p_count, lanes, reconstruct=True)
+            return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
 
     def mxu8_kernel_combined(self, sec8, seed, p_count: int, lanes: int = 1024):
         """The same launch without reconstruction: per-clerk combined
@@ -511,26 +514,29 @@ class TorchAggregationEngine:
         from B1, every later chunk adds onto the same buffer in place (B3),
         and :meth:`reconstruct_planar8` reveals. Chunk ``i`` draws with seed
         ``seed0 + (NBP // lanes) * i``, as the reference's loop does."""
-        acc = None
-        grid_size = None
-        for i, chunk in enumerate(chunks):
-            sec8 = chunk(i) if callable(chunk) else chunk
-            if grid_size is None:
-                grid_size = sec8.shape[-1] // lanes
-            seed_i = seed0 + grid_size * i
-            acc = self._fused(sec8, seed_i, p_chunk, lanes, reconstruct=False, acc_in=acc)
-        if acc is None:
-            raise ValueError("aggregate_mxu8_kernel_streaming requires at least one chunk")
-        return self.reconstruct_planar8(acc, lanes)
+        with span("sda.engine.aggregate"):
+            acc = None
+            grid_size = None
+            for i, chunk in enumerate(chunks):
+                sec8 = chunk(i) if callable(chunk) else chunk
+                if grid_size is None:
+                    grid_size = sec8.shape[-1] // lanes
+                seed_i = seed0 + grid_size * i
+                acc = self._fused(sec8, seed_i, p_chunk, lanes, reconstruct=False, acc_in=acc)
+            if acc is None:
+                raise ValueError("aggregate_mxu8_kernel_streaming requires at least one chunk")
+            with span("sda.engine.reconstruct"):
+                return self.reconstruct_planar8(acc, lanes)
 
     def aggregate_mxu8_kernel_chunked(self, sec8_stacked, n_chunks: int, p_chunk: int,
                                       seed: int = 0, lanes: int = 1024):
         """A whole multi-chunk job in ONE call (B2) with fused
         reconstruction: ``sec8_stacked`` stacks ``n_chunks`` planar chunks of
         ``p_chunk`` participants along its rows. Returns ``[nb, k, L]``."""
-        out = self._fused(sec8_stacked, seed, p_chunk, lanes, reconstruct=True,
-                          n_chunks=n_chunks)
-        return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
+        with span("sda.engine.aggregate"):
+            out = self._fused(sec8_stacked, seed, p_chunk, lanes, reconstruct=True,
+                              n_chunks=n_chunks)
+            return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
 
     # ------------------------------------------------- lane-batch serving
 
@@ -563,11 +569,12 @@ class TorchAggregationEngine:
         nbp_total = sec8_batched.shape[1]
         if nbp_total % n_jobs:
             raise ValueError("batched lane width must divide evenly into jobs")
-        out = self._fused(sec8_batched, seed, p_count, lanes, reconstruct=True,
-                          rand_participants=1 if combined_randomness else None)
-        k, L = self.spec.secret_count, self.ctx.L
-        full = out.reshape(L, k, nbp_total).permute(2, 1, 0)
-        return full.reshape(n_jobs, nbp_total // n_jobs, k, L)[:, : self.nb]
+        with span("sda.engine.aggregate"):
+            out = self._fused(sec8_batched, seed, p_count, lanes, reconstruct=True,
+                              rand_participants=1 if combined_randomness else None)
+            k, L = self.spec.secret_count, self.ctx.L
+            full = out.reshape(L, k, nbp_total).permute(2, 1, 0)
+            return full.reshape(n_jobs, nbp_total // n_jobs, k, L)[:, : self.nb]
 
     # ------------------------------------------------------ host edges
 
@@ -602,11 +609,17 @@ class TorchAggregationEngine:
     def decode_output(self, out_limbs) -> np.ndarray:
         """``[nb, k, L]`` -> the revealed ``[d]`` vector (object ints,
         truncating padding)."""
-        if self.ctx.p < (1 << 63):
-            vals = self.ctx.decode_i64(out_limbs).astype(object)
-        else:
-            vals = self.ctx.decode(out_limbs)
-        return vals.reshape(-1)[: self.dimension]
+        with span("sda.engine.decode"):
+            if self.ctx.p < (1 << 63):
+                # the limbs' recombine launches, then the .cpu() that waits
+                # for the aggregation and copies
+                with span("sda.engine.decode.wait"):
+                    vals = self.ctx.decode_i64(out_limbs)
+                with span("sda.engine.decode.to_object"):
+                    vals = vals.astype(object)
+            else:
+                vals = self.ctx.decode(out_limbs)
+            return vals.reshape(-1)[: self.dimension]
 
     def decode_shares(self, shares_limbs) -> np.ndarray:
         """``[..., n, L]`` -> object ints (for wire encoding per clerk)."""

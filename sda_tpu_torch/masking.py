@@ -31,6 +31,7 @@ import numpy as np
 from sda_tpu_torch import chacha
 from sda_tpu_torch.fields import PrimeField, trunc_add_mod, trunc_mod, trunc_sub_mod
 from sda_tpu_torch.utils.errors import Invalid
+from sda_tpu_torch.utils.logging import span
 
 __all__ = ["NoneMasker", "FullMasker", "ChaChaMasker", "masker_for_scheme"]
 
@@ -193,41 +194,44 @@ class ChaChaMasker:
         return np.array(seed_words, dtype=np.int64), masked
 
     def combine(self, seeds_as_i64):
-        seeds = [np.asarray(s, dtype=np.int64) for s in seeds_as_i64]
-        if not seeds:
-            return np.zeros(self.dimension, dtype=np.int64)
-        # re-expand every participant's seed and fold; i64 words -> u32
-        word_lists = [(s & 0xFFFFFFFF).tolist() for s in seeds]
-        policy = _policy(self.routing, self.device_bulk_threshold, self.device)
-        if (
-            policy is not None
-            and self.modulus % 2 == 1
-            and policy.chacha_combine(len(seeds), self.dimension) == "device"
-        ):
-            from sda_tpu_torch.ops.chacha_kernel import combine_masks_device
+        with span("sda.masking.combine"):
+            with span("sda.chacha.keys"):
+                seeds = [np.asarray(s, dtype=np.int64) for s in seeds_as_i64]
+                # re-expand every participant's seed and fold; i64 words -> u32
+                word_lists = [(s & 0xFFFFFFFF).tolist() for s in seeds]
+            if not seeds:
+                return np.zeros(self.dimension, dtype=np.int64)
+            policy = _policy(self.routing, self.device_bulk_threshold, self.device)
+            if (
+                policy is not None
+                and self.modulus % 2 == 1
+                and policy.chacha_combine(len(seeds), self.dimension) == "device"
+            ):
+                from sda_tpu_torch.ops.chacha_kernel import combine_masks_device
 
-            combined, _bad = combine_masks_device(
-                word_lists, self.dimension, self.modulus, device=self.device
-            )
-            # int64 already on the fused route, object ints on the chunk route
-            return np.asarray(combined, dtype=np.int64)
-        masks = chacha.expand_masks(word_lists, self.dimension, self.modulus)
-        acc = np.zeros(self.dimension, dtype=np.int64)
-        for row in masks:
-            # rows are uniform in [0, p): overflow-safe fold required at
-            # 63-bit production primes
-            acc = trunc_add_mod(acc, np.asarray(row, dtype=np.int64), self.modulus)
-        return acc
+                combined, _bad = combine_masks_device(
+                    word_lists, self.dimension, self.modulus, device=self.device
+                )
+                # int64 already on the fused route, object ints on the chunk route
+                return np.asarray(combined, dtype=np.int64)
+            masks = chacha.expand_masks(word_lists, self.dimension, self.modulus)
+            with span("sda.chacha.recombine"):
+                acc = np.zeros(self.dimension, dtype=np.int64)
+                for row in masks:
+                    # rows are uniform in [0, p): overflow-safe fold required at
+                    # 63-bit production primes
+                    acc = trunc_add_mod(acc, np.asarray(row, dtype=np.int64), self.modulus)
+            return acc
 
     def unmask(self, mask_and_masked):
-        mask, masked = mask_and_masked
-        if len(mask) != len(masked):
-            raise Invalid("mask/masked dimension mismatch")
-        return trunc_sub_mod(
-            np.asarray(masked, dtype=np.int64),
-            np.asarray(mask, dtype=np.int64),
-            self.modulus,
-        )
+        with span("sda.masking.unmask"):
+            mask, masked = mask_and_masked
+            if len(mask) != len(masked):
+                raise Invalid("mask/masked dimension mismatch")
+            with span("sda.masking.unmask.from_object"):
+                masked = np.asarray(masked, dtype=np.int64)
+            with span("sda.masking.unmask.sub"):
+                return trunc_sub_mod(masked, np.asarray(mask, dtype=np.int64), self.modulus)
 
 
 def masker_for_scheme(scheme, device_bulk_threshold: int | None = None,

@@ -41,6 +41,7 @@ import torch
 
 from sda_tpu_torch.engine import resolve_device
 from sda_tpu_torch.ops.limbs import LimbContext
+from sda_tpu_torch.utils.logging import span
 
 __all__ = [
     "chacha_keystream",
@@ -185,7 +186,8 @@ def chacha_keystream(seed_words, nblocks: int, device=None) -> torch.Tensor:
     if not 0 <= nblocks < (1 << 32):
         raise ValueError("chacha_keystream keeps the block counter in one word (nblocks < 2^32)")
     dev = resolve_device(device)
-    keys = _key_tensor(seed_words, dev)
+    with span("sda.chacha.keys"):
+        keys = _key_tensor(seed_words, dev)
     if dev.type == "cuda":
         return _launch_keystream(keys, nblocks)
     if dev.type == "cpu":
@@ -361,17 +363,20 @@ def fold_masks_device(seed_words, dimension: int, modulus: int, device=None):
         raise ValueError("fold_masks_device caps at 16384 seeds per call "
                          "(u32 limb-sum bound); group larger sets")
     dev = resolve_device(device)
-    keys = _key_tensor(seed_words, dev)
+    with span("sda.chacha.keys"):
+        keys = _key_tensor(seed_words, dev)
     if dimension == 0:
         limbs = torch.zeros((0, 4), dtype=torch.int32, device=dev)
         return limbs, np.zeros(keys.shape[0], dtype=np.int32)
-    if dev.type == "cuda":
-        limbs, rej = _launch_fold(keys, dimension, modulus)
-    elif dev.type == "cpu":
-        limbs, rej = _fold_plain(keys, dimension, modulus)
-    else:
-        raise ValueError(f"unsupported device {dev}")
-    return limbs, rej.cpu().numpy()
+    with span("sda.chacha.fold"):
+        if dev.type == "cuda":
+            limbs, rej = _launch_fold(keys, dimension, modulus)
+        elif dev.type == "cpu":
+            limbs, rej = _fold_plain(keys, dimension, modulus)
+        else:
+            raise ValueError(f"unsupported device {dev}")
+    with span("sda.chacha.wait"):
+        return limbs, rej.cpu().numpy()
 
 
 # ---------------------------------------------------------------- combine
@@ -434,21 +439,25 @@ def _combine_fused(seed_words, dimension: int, modulus: int, fixup_host: bool, d
         limbs, rej = fold_masks_device(seed_words[start : start + _FOLD_SEED_CAP], dimension,
                                        modulus, device=dev)
         bad.extend(start + int(i) for i in np.nonzero(rej)[0])
-        # canonical < 2^63 on this route: vectorised int64 limb recombine
-        la = limbs.cpu().numpy().astype(np.int64)
-        part = la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
-        out = part if out is None else trunc_add_mod(out, part, modulus)
+        with span("sda.chacha.wait"):
+            la = limbs.cpu().numpy()
+        with span("sda.chacha.recombine"):
+            # canonical < 2^63 on this route: vectorised int64 limb recombine
+            la = la.astype(np.int64)
+            part = la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
+            out = part if out is None else trunc_add_mod(out, part, modulus)
     if bad and fixup_host:
-        seeds = [seed_words[i] for i in bad]
-        wrong = chacha.expand_masks_noskip(seeds, dimension, modulus)
-        exact = chacha.expand_masks(seeds, dimension, modulus)
-        # python-int object arithmetic: the intermediate sums cross 2^63,
-        # so int64 element types would silently wrap
-        o = np.array(out.tolist(), dtype=object)
-        for j in range(len(bad)):
-            o = (o - np.array(wrong[j].tolist(), dtype=object)
-                 + np.array(exact[j].tolist(), dtype=object)) % modulus
-        return o, bad
+        with span("sda.chacha.fixup"):
+            seeds = [seed_words[i] for i in bad]
+            wrong = chacha.expand_masks_noskip(seeds, dimension, modulus)
+            exact = chacha.expand_masks(seeds, dimension, modulus)
+            # python-int object arithmetic: the intermediate sums cross 2^63,
+            # so int64 element types would silently wrap
+            o = np.array(out.tolist(), dtype=object)
+            for j in range(len(bad)):
+                o = (o - np.array(wrong[j].tolist(), dtype=object)
+                     + np.array(exact[j].tolist(), dtype=object)) % modulus
+            return o, bad
     return out, bad
 
 
@@ -468,15 +477,19 @@ def _combine_chunked(ctx: LimbContext, seed_words, dimension: int, fixup_host: b
                                              ctx.p, device=dev)
         partial = ctx.sum_mod(masks, axis=0)
         acc = partial if acc is None else ctx.add_mod(acc, partial)
-        for i in torch.nonzero(rejects).flatten().tolist():
+        with span("sda.chacha.wait"):
+            rejected = torch.nonzero(rejects).flatten().tolist()
+        for i in rejected:
             bad.append(start + i)
             if fixup_host:
                 wrong_rows.append(masks[i].cpu())
         del masks
-    out = _decode(ctx, acc)
+    with span("sda.chacha.recombine"):
+        out = _decode(ctx, acc)
     if bad and fixup_host:
-        exact = chacha.expand_masks([seed_words[i] for i in bad], dimension, ctx.p)
-        for j in range(len(bad)):
-            wrong = _decode(ctx, wrong_rows[j])
-            out = (out - wrong + np.asarray(exact[j], dtype=object)) % ctx.p
+        with span("sda.chacha.fixup"):
+            exact = chacha.expand_masks([seed_words[i] for i in bad], dimension, ctx.p)
+            for j in range(len(bad)):
+                wrong = _decode(ctx, wrong_rows[j])
+                out = (out - wrong + np.asarray(exact[j], dtype=object)) % ctx.p
     return out, bad

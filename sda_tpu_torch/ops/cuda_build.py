@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from sda_tpu_torch.utils.logging import span
+
 __all__ = ["build_kernel_libraries", "load_kernel_library", "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -87,8 +89,9 @@ def load_kernel_library(source: str, defines=()) -> ctypes.CDLL:
     key = (source, tuple(defines))
     got = _loaded.get(key)
     if got is None:
-        (lib,) = build_kernel_libraries([key])
-        got = ctypes.CDLL(str(lib))
+        with span("sda.kernel.load"):
+            (lib,) = build_kernel_libraries([key])
+            got = ctypes.CDLL(str(lib))
         _loaded[key] = got
     return got
 
