@@ -199,10 +199,8 @@ class SdaClient:
         else:
             mat = np.asarray(scheme.reconstruct_matrix(indices), dtype=object)
             out = modmat(engine.ctx, limbs, engine.ctx.encode_mont(mat, engine.device))
-        if small:
-            return engine.ctx.decode_i64(out).reshape(-1)[:dimension]
-        vals = engine.decode_output(out)
-        return np.array([int(v) for v in vals], dtype=np.int64)
+        vals = engine.decode_output(out)  # int64 below 2^63
+        return vals if small else np.array([int(v) for v in vals], dtype=np.int64)
 
     def _fallback_wants_device(self, est_elements: int) -> bool:
         """No-native-library clerk fallback: measured link-vs-fold decision

@@ -81,6 +81,10 @@ __all__ = [
     "spec_from_numpy",
 ]
 
+# decode_output calls that took the int64 route (below a modulus of 2^63):
+# each launches the limbs' recombine and one copy to the host.
+decode_i64_launches = 0
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. A CUDA device without a card raises: nothing
@@ -607,19 +611,21 @@ class TorchAggregationEngine:
         return self.ctx.encode(r, self.device)
 
     def decode_output(self, out_limbs) -> np.ndarray:
-        """``[nb, k, L]`` -> the revealed ``[d]`` vector (object ints,
-        truncating padding)."""
+        """``[nb, k, L]`` -> the revealed ``[d]`` vector, truncating padding:
+        int64 below a modulus of 2^63 (every residue fits), object ints at
+        wider moduli."""
+        global decode_i64_launches
         with span("sda.engine.decode"):
-            if self.ctx.p < (1 << 63):
-                # the limbs' recombine launches, then the .cpu() that waits
-                # for the aggregation and copies
-                with span("sda.engine.decode.wait"):
-                    vals = self.ctx.decode_i64(out_limbs)
+            if self.ctx.p >= (1 << 63):
                 with span("sda.engine.decode.to_object"):
-                    vals = vals.astype(object)
-            else:
-                vals = self.ctx.decode(out_limbs)
-            return vals.reshape(-1)[: self.dimension]
+                    return self.ctx.decode(out_limbs).reshape(-1)[: self.dimension]
+            # the limbs' recombine launches, then the .cpu() that waits for
+            # the aggregation and copies
+            with span("sda.engine.decode.wait"):
+                vals = self.ctx.decode_i64(out_limbs)
+            decode_i64_launches += 1
+            with span("sda.engine.decode.to_object"):
+                return vals.reshape(-1)[: self.dimension]
 
     def decode_shares(self, shares_limbs) -> np.ndarray:
         """``[..., n, L]`` -> object ints (for wire encoding per clerk)."""

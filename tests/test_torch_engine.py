@@ -63,6 +63,48 @@ def test_engine_aggregate_matches_reference(scheme):
     ]
 
 
+def _reveal_both(model, d):
+    """The reference's and the port's ``decode_output`` of one output limb
+    array of ``model`` at dimension ``d``: values 0, 1 and p - 1 at both
+    ends (the last real element among them), random residues between, the
+    padding past ``d`` nonzero so a missed truncation shows."""
+    from sda_tpu import models as ref_models
+
+    ref = getattr(ref_models.FederatedAggregation, model)(dimension=d).engine
+    eng = getattr(FederatedAggregation, model)(dimension=d, device="cpu").engine
+    p = ref.ctx.p
+    vals = np.random.default_rng(d).integers(0, 1 << 62, size=eng.nb * 3).astype(object)
+    vals[:3] = [0, 1, p - 1]
+    vals[d - 3 : d] = [p - 1, 1, 0]
+    vals[d:] = p - 1
+    limbs = ref.ctx.encode(vals.reshape(eng.nb, 3))
+    return ref.decode_output(limbs), eng.decode_output(limbs_from_numpy(limbs))
+
+
+@pytest.mark.parametrize("model,d,dtype", [
+    pytest.param("packed_64bit", 10, np.int64, id="64bit-pad2"),
+    pytest.param("packed_64bit", 11, np.int64, id="64bit-pad1"),
+    pytest.param("packed_128bit", 10, object, id="128bit-pad2"),
+])
+def test_decode_output_dtype_and_values_match_reference(model, d, dtype):
+    """Below a modulus of 2^63 the reveal is an int64 ``[d]`` array, at
+    2^127 - 1495 object ints; either way the reference's values, element for
+    element, padding truncated."""
+    want, got = _reveal_both(model, d)
+    assert got.dtype == dtype
+    assert got.shape == (d,)
+    assert [int(x) for x in got] == [int(x) for x in want]
+
+
+@pytest.mark.parametrize("model,rise", [("packed_64bit", 1), ("packed_128bit", 0)])
+def test_decode_i64_launches_counts_the_int64_route(model, rise):
+    from sda_tpu_torch import engine as port_engine
+
+    before = port_engine.decode_i64_launches
+    _reveal_both(model, 10)
+    assert port_engine.decode_i64_launches - before == rise
+
+
 def _encode_both(values, monkeypatch):
     """``values`` through the reference's and the port's ``encode_secrets``
     at ``packed_64bit(dimension=3)`` (p = 2^63 - 871); also whether the

@@ -339,3 +339,25 @@ def test_trunc_sub_mod_matches_reference():
     assert got.tolist() == ref_trunc_sub_mod(a, b, m).tolist()
     assert [int(x) for x in got] == [
         (abs(int(x) - int(y)) % m) * (1 if int(x) >= int(y) else -1) for x, y in zip(a, b)]
+
+
+def test_chacha_unmask_takes_int64_as_it_is(monkeypatch):
+    """The reveal as int64 and as object ints unmask to the same int64
+    values in (-p, p); the int64 one reaches the subtraction uncopied."""
+    from sda_tpu_torch import masking
+
+    m = P63
+    rng = np.random.default_rng(11)
+    masked = np.concatenate([[0, 1, m - 1], rng.integers(0, m, size=61)])
+    masker = ChaChaMasker(m, masked.size, 128, device="cpu")
+    mask = masker.combine(_seeds_i64(3, 5))
+    seen = []
+    sub = masking.trunc_sub_mod
+    monkeypatch.setattr(masking, "trunc_sub_mod", lambda a, b, mod: seen.append(a) or sub(a, b, mod))
+    got = masker.unmask((mask, masked))
+    assert np.shares_memory(seen[0], masked)
+    from_object = masker.unmask((mask, masked.astype(object)))
+    assert got.dtype == from_object.dtype == np.int64
+    assert got.tolist() == from_object.tolist()
+    assert ((got > -m) & (got < m)).all()
+    assert positive(got, m).tolist() == [(int(x) - int(y)) % m for x, y in zip(masked, mask)]
