@@ -353,6 +353,16 @@ TOLERANCE = dict(dimension=1_000_002, participants=4, masking="chacha", workers=
 # takes B5 (the rule of sda_tpu/ops/chacha_kernel.py:457 too), so its ChaCha
 # combine is the chunk route, one B4 launch
 TOLERANCE_LAUNCHES = {"chacha_keystream": 1}
+# the 728-clerk committee of FederatedAggregation.packed_tss728 (100 secrets,
+# threshold 155, p = 746,497) at d = 2^20 (10,486 batches, NBP 10,496 at 128
+# lanes): csrc/mxu8.cu mode 3, the wide plans. Launches of 128 participants
+# with the kernel's randomness (51,200 operand rows) and of 64 with the
+# caller's (65,280 rows: 128 would pass the carry chain's 65,793), each B1
+# then B3 onto it; then the reconstruction from 255 of the 728 clerks. Each
+# is held bit-equal to the plain version on the card at full width and on
+# the CPU at cpu_lanes lanes.
+WIDE = dict(dimension=1 << 20, lanes=128, prng_participants=128, caller_participants=64,
+            clerks=255, cpu_lanes=256, seed=22)
 # the README walkthrough: its reveal
 CLI_REVEAL = "0 2 2 4 4 6 6 8 8 10"
 
@@ -436,6 +446,7 @@ def _reset_counts():
     from sda_tpu_torch.ops import probes
 
     m8.mxu8_launches = m8.mxu8_chunked_launches = m8.mxu8_acc_launches = 0
+    m8.mxu8_wide_launches = 0
     ck.chacha_keystream_launches = ck.chacha_fold_launches = 0
     m7.mxu_fused_launches = pk.fused_planar_launches = 0
     for name in probes.probe_launches:
@@ -456,7 +467,8 @@ def _counts():
     from sda_tpu_torch.ops import probes
 
     return {"mxu8_fused": m8.mxu8_launches, "mxu8_chunked": m8.mxu8_chunked_launches,
-            "mxu8_acc": m8.mxu8_acc_launches, "mxu7_fused": m7.mxu_fused_launches,
+            "mxu8_acc": m8.mxu8_acc_launches, "mxu8_wide": m8.mxu8_wide_launches,
+            "mxu7_fused": m7.mxu_fused_launches,
             "planar_cios": pk.fused_planar_launches, **probes.probe_launches}
 
 
@@ -1071,6 +1083,166 @@ def phase_config4(mhz: float, iters: int = 5):
         "step_bytes": sum(b for b, _ in step_costs),
         "shape": f"P={n_chunks}x{p_chunk} dim={HEADLINE_DIM} rows={rows}/chunk NBP={nbp}",
     }
+
+
+def phase_wide(iters: int = 10):
+    """``WIDE``: mode 3 of ``csrc/mxu8.cu`` at the 728-clerk committee's
+    widths, then three small cases beside them. Each launch is held bit-equal to the plain version on the card
+    at full width and on the CPU at ``cpu_lanes`` lanes, its launches
+    counted, then timed with CUDA events, the counters reset just before.
+    Bounds: the implemented work (``mxu8_cost``: the padded contraction and
+    every operand byte) and the share's work from shapes alone (each batch
+    of k secrets meets each clerk's column byte by byte, ``P * nb * k * n *
+    ceil(20 / 8)^2`` int8 multiply-adds; the elements read once at 4 bytes
+    and the clerks' sums written once)."""
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import engine as engine_mod
+    from sda_tpu_torch.engine import TorchAggregationEngine
+    from sda_tpu_torch.fields import find_special_prime_field
+    from sda_tpu_torch.models import FederatedAggregation
+    from sda_tpu_torch.ops import mxu8 as m8
+    from sda_tpu_torch.sharing import AdditiveScheme
+    from sda_tpu_torch.tools._common import bound, mxu8_cost
+    from sda_tpu_torch.utils.profiling import cuda_time
+
+    eng = FederatedAggregation.packed_tss728(dimension=WIDE["dimension"], device=DEVICE).engine
+    spec, L, L8, lanes = eng.spec, eng.ctx.L, eng.mxu8.L8, WIDE["lanes"]
+    k, r, n = spec.secret_count, spec.randomness_count, spec.share_count
+    nbp, cpu_nbp = -(-eng.nb // lanes) * lanes, WIDE["cpu_lanes"]
+    card, cpu = torch.device(DEVICE), torch.device("cpu")
+    gen = torch.Generator(device=DEVICE).manual_seed(WIDE["seed"])
+    field_bytes = -(-spec.modulus.bit_length() // 8)
+
+    def check(what, got, want):
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f"wide {what}: kernel != plain version, max err "
+                                 f"{_max_err(got, want)}")
+
+    def counted(what, launches):
+        if _counts() != _only(mxu8_wide=launches):
+            raise AssertionError(f"wide {what} launched {_counts()}, not mxu8_wide x {launches}")
+
+    def timed(what, fn):
+        _reset_counts()
+        t = cuda_time(fn, iters=iters, warmup=2)
+        counted(what, iters + 2)
+        return t
+
+    res = {"shape": f"n={n} k={k} t={r} p={spec.modulus} d={WIDE['dimension']} NBP={nbp}"}
+    comb = None
+    for mode, P, prng in (("prng", WIDE["prng_participants"], True),
+                          ("caller", WIDE["caller_participants"], False)):
+        rows = P * (k if prng else k + r) * L8
+        plan, cpu_plan = (eng._plan("combine", rows, P, d) for d in (card, cpu))
+        if not m8.is_wide(plan):
+            raise AssertionError(f"the {mode} plan ({plan.n * L8 + 1} rows) is not wide")
+        secs = [torch.randint(-128, 128, (rows, nbp), generator=gen, dtype=torch.int8,
+                              device=DEVICE) for _ in range(2)]
+        _reset_counts()
+        b1 = m8.run_mxu8(plan, secs[0], seed=11)
+        b3 = m8.run_mxu8(plan, secs[1], seed=12, acc_in=b1.clone())
+        torch.cuda.synchronize()
+        counted(f"{mode} B1 + B3", 2)
+        want = m8._fused_share_combine_mxu8_plain(plan, secs[0], 11)
+        check(f"{mode} B1", b1, want)
+        check(f"{mode} B3", b3, m8._fused_share_combine_mxu8_plain(plan, secs[1], 12,
+                                                                    acc_in=want))
+        small = [x[:, :cpu_nbp].contiguous() for x in secs]
+        got = m8.run_mxu8(plan, small[0], seed=11)
+        want = m8.run_mxu8(cpu_plan, small[0].cpu(), seed=11)
+        check(f"{mode} B1 at {cpu_nbp} lanes against the CPU", got, want)
+        got = m8.run_mxu8(plan, small[1], seed=12, acc_in=got)
+        check(f"{mode} B3 at {cpu_nbp} lanes against the CPU", got,
+              m8.run_mxu8(cpu_plan, small[1].cpu(), seed=12, acc_in=want))
+        acc = b3.clone()
+        t1 = timed(f"{mode} B1", lambda i: m8.run_mxu8(plan, secs[0], seed=i))
+        t3 = timed(f"{mode} B3", lambda i: m8.run_mxu8(plan, secs[1], seed=i, acc_in=acc))
+        macs = P * eng.nb * k * n * field_bytes ** 2
+        shape_bytes = 4 * (P * WIDE["dimension"] + L * n * nbp)
+        res[mode] = {"P": P, "rows": rows, "Kr": plan.Kr, "b1": t1, "b3": t3,
+                     "launches": iters + 2,
+                     "bound": bound([mxu8_cost(plan, nbp)]),
+                     "bound_b3": bound([mxu8_cost(plan, nbp, acc=True)]),
+                     "shape_bound": bound([(shape_bytes, 2.0 * macs)])}
+        if prng:
+            comb = b3
+
+    clerks = sorted(np.random.default_rng(WIDE["seed"]).choice(n, WIDE["clerks"], replace=False)
+                    .tolist())
+    before = engine_mod.subset_reconstruct_launches
+    _reset_counts()
+    sub = eng.reconstruct_lm(comb, lanes, clerks)
+    full = eng.reconstruct_lm(comb, lanes)
+    torch.cuda.synchronize()
+    counted("the subset and the full-set reconstruction", 2)
+    if engine_mod.subset_reconstruct_launches != before + 1:
+        raise AssertionError("the subset reconstruction was not counted once")
+    check(f"reconstruction from {len(clerks)} clerks against all {n}", sub, full)
+    plan = eng.subset_plan(tuple(clerks), card)
+    rows = torch.tensor([l * n + i for l in range(L) for i in clerks], device=card)
+    c8 = eng._clerk_bytes(comb.index_select(0, rows), len(clerks))
+    check("reconstruction", sub, m8._fused_share_combine_mxu8_plain(plan, c8, 0))
+    check(f"reconstruction at {cpu_nbp} lanes against the CPU", sub[:, :cpu_nbp],
+          eng.reconstruct_lm(comb[:, :cpu_nbp].cpu(), lanes, clerks))
+    t_rec = timed("reconstruction kernel", lambda i: m8.run_mxu8(plan, c8, 0))
+    t_call = timed("reconstruction call", lambda i: eng.reconstruct_lm(comb, lanes, clerks))
+    # a subset not seen before: its Lagrange matrix and plan, on the host
+    other = tuple(sorted(np.random.default_rng(WIDE["seed"] + 1)
+                         .choice(n, WIDE["clerks"], replace=False).tolist()))
+    t0 = time.perf_counter()
+    eng.subset_plan(other, card)
+    torch.cuda.synchronize()
+    res["rec"] = {"clerks": len(clerks), "rows": plan.rows, "kernel": t_rec, "call": t_call,
+                  "bound": bound([mxu8_cost(plan, nbp)]),
+                  "plan_ms": (time.perf_counter() - t0) * 1e3}
+
+    # beside the committee's widths, against the CPU: a lane count that is no
+    # multiple of 128, and the narrowest wide plan (25 additive clerks at
+    # 2^63 - 871: 201 output rows, the pseudo-Mersenne fold) in both modes
+    p63 = find_special_prime_field(63, 8, 9)[0]
+    add = TorchAggregationEngine(AdditiveScheme(share_count=25, modulus=p63).device_spec(), 300,
+                                 device=DEVICE)
+    for e, P, prng, width in ((eng, 3, True, 200), (add, 3, True, 384), (add, 3, False, 384)):
+        slots = e.spec.secret_count + (0 if prng else e.spec.randomness_count)
+        rows = P * slots * e.mxu8.L8
+        plan, cpu_plan = (e._plan("combine", rows, P, d) for d in (card, cpu))
+        if not m8.is_wide(plan):
+            raise AssertionError(f"the {plan.n}-clerk plan is not wide")
+        x = torch.randint(-128, 128, (rows, width), generator=gen, dtype=torch.int8,
+                          device=DEVICE)
+        check(f"{plan.n} clerks, P={P}, {width} lanes", m8.run_mxu8(plan, x, seed=5),
+              m8.run_mxu8(cpu_plan, x.cpu(), seed=5))
+    return res
+
+
+def _wide_lines(w: dict, card: str) -> list[str]:
+    lines = [f"wide: {w['shape']} on {card}: mode 3 B1 and B3 bit-equal to the plain version "
+             f"(on the card at full width, on the CPU at {WIDE['cpu_lanes']} lanes) with the "
+             f"kernel's randomness (P={w['prng']['P']}) and the caller's (P={w['caller']['P']}); "
+             f"the reconstruction from {w['rec']['clerks']} clerks equal to the full-set one and "
+             f"to the plain version; at 200 lanes, and 25 additive clerks at 2^63 - 871 (201 "
+             f"rows) in both modes, equal to the CPU"]
+    for mode in ("prng", "caller"):
+        m = w[mode]
+        lines.append(
+            f"wide: {mode} P={m['P']} ({m['rows']} operand rows, Kr {m['Kr']}): B1 median "
+            f"{m['b1'].median_ms:.4f} ms (min {m['b1'].min_ms:.4f}, max {m['b1'].max_ms:.4f}), "
+            f"B3 median {m['b3'].median_ms:.4f} ms (min {m['b3'].min_ms:.4f}, max "
+            f"{m['b3'].max_ms:.4f}), {len(m['b1'].samples_ms)} launches each, events; bound "
+            f"{m['bound'][0]:.4f} ms ({m['bound'][1]}, the implemented work; B3 "
+            f"{m['bound_b3'][0]:.4f}), from shapes {m['shape_bound'][0]:.4f} ms "
+            f"({m['shape_bound'][1]}): {m['shape_bound'][0] / m['b1'].median_ms:.4f} of it")
+    rc = w["rec"]
+    lines.append(
+        f"wide: reconstruction from {rc['clerks']} clerks ({rc['rows']} rows): kernel median "
+        f"{rc['kernel'].median_ms:.4f} ms (min {rc['kernel'].min_ms:.4f}, max "
+        f"{rc['kernel'].max_ms:.4f}), bound {rc['bound'][0]:.4f} ms ({rc['bound'][1]}); "
+        f"reconstruct_lm (rows gathered, bytes split, the launch) median "
+        f"{rc['call'].median_ms:.4f} ms; a new subset's Lagrange matrix and plan "
+        f"{rc['plan_ms']:.1f} ms on the host clock")
+    return lines
 
 
 def phase_serving(mhz: float, iters: int = 20):
@@ -3577,6 +3749,10 @@ def main() -> int:
           f"({c4['traced_activities']} device activities), device idle share "
           f"{c4['traced_idle_share']:.4f}", flush=True)
 
+    wd = phase_wide()
+    for line in _wide_lines(wd, card):
+        print(line, flush=True)
+
     sv = phase_serving(mhz)
     for combined in (False, True):
         r = sv[combined]
@@ -3829,6 +4005,30 @@ def main() -> int:
             "roofline_launches": rf["launches"],
             "roofline_full_ms": full["seconds"] * 1e3,
             "roofline_combine_only_ms": comb["seconds"] * 1e3,
+        },
+        {
+            "name": "mxu8_wide",
+            "route": "cuda",
+            "source": "sda_tpu_torch/ops/csrc/mxu8.cu",
+            "replaces": "sda_tpu/ops/mxu8.py:454",
+            "launches": wd["prng"]["launches"],
+            "max_abs_err": 0,
+            "ms": wd["prng"]["b1"].median_ms,
+            "min_ms": wd["prng"]["b1"].min_ms,
+            "max_ms": wd["prng"]["b1"].max_ms,
+            "bound_ms": wd["prng"]["bound"][0],
+            "bound_by": wd["prng"]["bound"][1],
+            "shape_bound_ms": wd["prng"]["shape_bound"][0],
+            "library_ms": None,
+            "shape": f"{wd['shape']} P={wd['prng']['P']} (PRNG)",
+            "b3_ms": wd["prng"]["b3"].median_ms,
+            "caller_ms": wd["caller"]["b1"].median_ms,
+            "caller_b3_ms": wd["caller"]["b3"].median_ms,
+            "caller_shape": f"P={wd['caller']['P']} (caller randomness)",
+            "caller_bound_ms": wd["caller"]["bound"][0],
+            "reconstruct_ms": wd["rec"]["kernel"].median_ms,
+            "reconstruct_bound_ms": wd["rec"]["bound"][0],
+            "subset_plan_ms": wd["rec"]["plan_ms"],
         },
         {
             "name": "mxu8_chunked",

@@ -32,7 +32,9 @@ on a CPU tensor, in their plain versions:
     K work split across blocks, then an epilogue kernel);
   - ``aggregate_mxu8_kernel_streaming``: chunks from the host, one launch
     each onto one running accumulator (B1, then B3), then
-    ``reconstruct_planar8`` (B1);
+    ``reconstruct_planar8`` (B1), from every clerk or from the clerks that
+    reported (``clerks=``, any threshold of them, through the scheme's
+    subset Lagrange matrix);
   - ``concat_jobs_lanes`` + ``aggregate_mxu8_kernel_jobs``: many same-shape
     small jobs side by side on the lane axis, one launch (B1).
 
@@ -44,6 +46,9 @@ The engine runs on ``cuda`` unless the caller passes another device.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -84,6 +89,10 @@ __all__ = [
 # decode_output calls that took the int64 route (below a modulus of 2^63):
 # each launches the limbs' recombine and one copy to the host.
 decode_i64_launches = 0
+# reconstructions from a subset of the clerks (one kernel launch each)
+subset_reconstruct_launches = 0
+# subset plans an engine keeps, the least recently used dropped first
+SUBSET_PLANS = 8
 
 
 def resolve_device(device=None) -> torch.device:
@@ -199,25 +208,48 @@ class TorchAggregationEngine:
         self.dimension = dimension
         self.ctx = LimbContext.create(spec.modulus)
         self.nb = -(-dimension // spec.secret_count)
-        # Montgomery-form matrices on the device; mont_mul(normal, mont) = product
-        self.share_mat = self.ctx.encode_mont(spec.share_matrix, self.device)
-        self.rec_mat = self.ctx.encode_mont(spec.reconstruct_matrix, self.device)
-        # 7-bit and byte-limb kernel paths: odd moduli wider than 7 bits
+        # 7-bit and byte-limb kernel paths: odd moduli wider than 7 bits. The
+        # matrices each path needs are built on its first use (below): at
+        # hundreds of clerks, in Python ints, they take seconds.
         self.mxu: MxuContext | None = None
         self.mxu8: Mxu8Context | None = None
         if spec.modulus % 2 == 1 and spec.modulus.bit_length() > 7:
             self.mxu = MxuContext.create(self.ctx)
             self.mxu8 = Mxu8Context.create(self.ctx)
-            L7, k, r = self.mxu.L7, spec.secret_count, spec.randomness_count
-            # raw double-width randomness slots (PRNG) and canonical slots
-            self._slots_raw = [L7] * k + [2 * L7] * r
-            self._slots_can = [L7] * (k + r)
-            self._big_raw = self.mxu.matrix_int8(spec.share_matrix, self._slots_raw)
-            self._big_can = self.mxu.matrix_int8(spec.share_matrix, self._slots_can)
-            self._cols_raw = self.mxu.out_cols(self._slots_raw)
-            self._cols_can = self.mxu.out_cols(self._slots_can)
         self._big_tiles: dict = {}
         self._plans: dict = {}
+        self._subset_plans: OrderedDict = OrderedDict()
+
+    # Montgomery-form matrices on the device; mont_mul(normal, mont) = product
+    @cached_property
+    def share_mat(self) -> torch.Tensor:
+        return self.ctx.encode_mont(self.spec.share_matrix, self.device)
+
+    @cached_property
+    def rec_mat(self) -> torch.Tensor:
+        return self.ctx.encode_mont(self.spec.reconstruct_matrix, self.device)
+
+    # the gen-3 slot matrices: raw double-width randomness slots (PRNG) and
+    # canonical slots, each with its output columns
+    def _slots(self, kind: str) -> list[int]:
+        L7, k, r = self._require_mxu().L7, self.spec.secret_count, self.spec.randomness_count
+        return [L7] * k + ([2 * L7] * r if kind == "raw" else [L7] * r)
+
+    @cached_property
+    def _big_raw(self) -> np.ndarray:
+        return self._require_mxu().matrix_int8(self.spec.share_matrix, self._slots("raw"))
+
+    @cached_property
+    def _big_can(self) -> np.ndarray:
+        return self._require_mxu().matrix_int8(self.spec.share_matrix, self._slots("can"))
+
+    @cached_property
+    def _cols_raw(self):
+        return self._require_mxu().out_cols(self._slots("raw"))
+
+    @cached_property
+    def _cols_can(self):
+        return self._require_mxu().out_cols(self._slots("can"))
 
     # ---------------------------------------------------- CIOS limb path
 
@@ -492,32 +524,78 @@ class TorchAggregationEngine:
         shares, ``[L * n, NBP]`` limb-major."""
         return self._fused(sec8, seed, p_count, lanes, reconstruct=False)
 
-    def reconstruct_planar8(self, comb, lanes: int = 1024):
-        """``[L * n, NBP]`` canonical combined shares -> ``[nb, k, L]``
-        through one B1 launch: the reconstruction is the same modular
-        matmul with one "participant", the n clerks as slots and no
-        randomness."""
+    def subset_plan(self, clerks, device):
+        """The reconstruction plan from the clerks ``clerks`` (a tuple of
+        indices, in the order of the shares' rows): the scheme's subset
+        Lagrange matrix (``spec.subset_matrix``) as one modular matmul with
+        one "participant" and the clerks as slots. Built in int64 on a
+        miss; the engine keeps the :data:`SUBSET_PLANS` used last."""
+        key = (clerks, device)
+        plan = self._subset_plans.get(key)
+        if plan is not None:
+            self._subset_plans.move_to_end(key)
+            return plan
+        with span("sda.sharing.lagrange"):
+            mxu8 = self._require_mxu8()
+            s = len(clerks)
+            plan = mxu8_plan(mxu8, self.spec.subset_matrix(clerks), s * mxu8.L8, 1, s, 0,
+                             device=device)
+        self._subset_plans[key] = plan
+        while len(self._subset_plans) > SUBSET_PLANS:
+            self._subset_plans.popitem(last=False)
+        return plan
+
+    def reconstruct_lm(self, comb, lanes: int = 1024, clerks=None):
+        """``[L * n, NBP]`` canonical combined shares -> ``[L * k, NBP]``
+        limb-major secrets through one launch: the reconstruction is the
+        same modular matmul with one "participant", the clerks as slots and
+        no randomness. ``clerks``: reconstruct from these clerks' rows only
+        (any ``k + r`` or more of the ``n``), with :meth:`subset_plan`."""
+        global subset_reconstruct_launches
         mxu8 = self._require_mxu8()
-        n = self.spec.share_count
+        n, L = self.spec.share_count, self.ctx.L
+        if clerks is None:
+            plan = self._plan("reconstruct", n * mxu8.L8, 1, comb.device)
+            return run_mxu8(plan, self._clerk_bytes(comb, n), 0, lanes=lanes)
+        with span("sda.engine.reconstruct.subset"):
+            clerks = tuple(int(i) for i in clerks)
+            if not all(0 <= i < n for i in clerks):
+                raise ValueError(f"clerk indices must lie in [0, {n})")
+            plan = self.subset_plan(clerks, comb.device)
+            rows = torch.tensor([l * n + i for l in range(L) for i in clerks], device=comb.device)
+            out = run_mxu8(plan, self._clerk_bytes(comb.index_select(0, rows), len(clerks)), 0,
+                           lanes=lanes)
+            subset_reconstruct_launches += 1
+            return out
+
+    def _clerk_bytes(self, comb, s: int) -> torch.Tensor:
+        """``[L * s, NBP]`` limb-major canonical shares of ``s`` clerks ->
+        ``[s * L8, NBP]`` int8 biased bytes, slot-major rows (clerk i, byte
+        j), the reconstruction's operand."""
+        L8 = self._require_mxu8().L8
         comb = comb.to(torch.int64)
-        # biased bytes, slot-major rows (clerk i, byte j): [n, L8, NBP]
-        c8 = torch.stack(
-            [((comb[(j // 2) * n : (j // 2 + 1) * n] >> (8 * (j % 2))) & 0xFF) - 128
-             for j in range(mxu8.L8)],
+        return torch.stack(
+            [((comb[(j // 2) * s : (j // 2 + 1) * s] >> (8 * (j % 2))) & 0xFF) - 128
+             for j in range(L8)],
             dim=1,
-        ).to(torch.int8).reshape(n * mxu8.L8, -1)
-        plan = self._plan("reconstruct", c8.shape[0], 1, c8.device)
-        out = run_mxu8(plan, c8, 0, lanes=lanes)
+        ).to(torch.int8).reshape(s * L8, -1)
+
+    def reconstruct_planar8(self, comb, lanes: int = 1024, clerks=None):
+        """``[L * n, NBP]`` canonical combined shares -> ``[nb, k, L]``
+        (:meth:`reconstruct_lm`), from every clerk or from ``clerks``."""
+        out = self.reconstruct_lm(comb, lanes, clerks)
         return batched_from_planar_lm(out, self.nb, self.spec.secret_count)
 
     def aggregate_mxu8_kernel_streaming(self, chunks, p_chunk: int, seed0: int = 0,
-                                        lanes: int = 1024):
+                                        lanes: int = 1024, clerks=None):
         """Past one launch's participant bound, with chunks from the host:
         ``chunks`` yields ``[p_chunk*k*L8, NBP]`` planar tensors (or
         callables ``f(i)``). The first chunk's canonical per-clerk sums come
         from B1, every later chunk adds onto the same buffer in place (B3),
-        and :meth:`reconstruct_planar8` reveals. Chunk ``i`` draws with seed
-        ``seed0 + (NBP // lanes) * i``, as the reference's loop does."""
+        and :meth:`reconstruct_planar8` reveals, from the clerks ``clerks``
+        alone when given (the recipient's threshold reveal). Chunk ``i``
+        draws with seed ``seed0 + (NBP // lanes) * i``, as the reference's
+        loop does."""
         with span("sda.engine.aggregate"):
             acc = None
             grid_size = None
@@ -530,7 +608,7 @@ class TorchAggregationEngine:
             if acc is None:
                 raise ValueError("aggregate_mxu8_kernel_streaming requires at least one chunk")
             with span("sda.engine.reconstruct"):
-                return self.reconstruct_planar8(acc, lanes)
+                return self.reconstruct_planar8(acc, lanes, clerks)
 
     def aggregate_mxu8_kernel_chunked(self, sec8_stacked, n_chunks: int, p_chunk: int,
                                       seed: int = 0, lanes: int = 1024):

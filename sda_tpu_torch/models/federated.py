@@ -109,6 +109,25 @@ class FederatedAggregation:
         return cls(scheme, dimension, device=device)
 
     @classmethod
+    def packed_tss728(cls, dimension: int = 1 << 20, device=None) -> "FederatedAggregation":
+        """The packed-sharing example of the threshold-secret-sharing crate
+        that sda's ``PackedShamir`` scheme wraps, as published: 100 secrets
+        a batch, 728 clerks, privacy threshold 155, p = 746,497 (a 20-bit
+        generic prime, p - 1 = 2^10 * 3^6), omega_secrets = 95,660 (order
+        256) and omega_shares = 610,121 (order 729). Any 255 of the clerks
+        reveal (``engine.reconstruct_planar8(..., clerks=...)``). Unmasked,
+        as sda's ``LinearMaskingScheme::None`` allows."""
+        scheme = PackedShamirScheme(
+            secret_count=100,
+            share_count=728,
+            privacy_threshold=155,
+            prime_modulus=746_497,
+            omega_secrets=95_660,
+            omega_shares=610_121,
+        )
+        return cls(scheme, dimension, masked=False, device=device)
+
+    @classmethod
     def additive_small(cls, dimension: int = 10, modulus: int = 433,
                        share_count: int = 3, device=None):
         """The small additive walkthrough shape."""

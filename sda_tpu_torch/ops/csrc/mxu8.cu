@@ -30,6 +30,11 @@
 //                              slots, so its shared memory need not grow
 //                              with their columns.
 //      Chunk c draws its randomness with key seed + c * seed_stride.
+//   3  B1 and B3 for wide plans (more than the 192 output rows n * L8 + 1
+//      that one block's MT tiles hold; combine-only, one chunk): the output
+//      rows are tiled over the grid (mxu8_wide_kernel, below), and in PRNG
+//      mode the randomness operand is drawn once per launch by
+//      mxu8_wide_rand_kernel. No other mode's code changes with it.
 //
 // Split K (B2). A lane block's work is the list of n_chunks * ceil(K / 64)
 // (chunk, tile) pairs; split s of S takes pairs [s * total / S, (s + 1) *
@@ -140,11 +145,13 @@ constexpr int kNParams = 29;
 constexpr int kPlain = 0;    // B1
 constexpr int kAcc = 1;      // B3
 constexpr int kChunked = 2;  // B2
+constexpr int kWide = 3;     // B1 and B3 on wide plans
 #ifndef SDA_MXU8_MODE
 #define SDA_MXU8_MODE 0
 #endif
 constexpr int kMode = SDA_MXU8_MODE;
-static_assert(kMode == kPlain || kMode == kAcc || kMode == kChunked, "SDA_MXU8_MODE is 0, 1 or 2");
+static_assert(kMode == kPlain || kMode == kAcc || kMode == kChunked || kMode == kWide,
+              "SDA_MXU8_MODE is 0, 1, 2 or 3");
 
 struct Params {
   int K;         // sec rows (participants x slots x L8)
@@ -1083,6 +1090,654 @@ mxu8_epilogue_kernel(const int32_t* __restrict__ ws, const int8_t* __restrict__ 
   }
 }
 
+#if SDA_MXU8_MODE == 3
+// ------------------------------------------------------------ wide plans
+//
+// B1 and B3 (mode 3) for plans of more than 192 output rows, combine-only
+// and one chunk. One block of 256 threads (two warpgroups) computes
+// kWideRows = 256 of the n * L8 rows for kT = 128 lanes at a time. The grid
+// is (row slices, groups of lane blocks) and fills the SMs once: each block
+// takes its group's lane blocks in turn, so that the slices of a lane block
+// run side by side and read its sec tiles from L2 at about the same time. A
+// slice holds whole clerks: rows [r0, r0 + (256 / L8) * L8). Warp w' of
+// warpgroup wg owns the rows 128 wg + 64 i + 16 w' + [0, 16) for i = 0, 1
+// and all 128 lanes: the accumulator layout of wgmma's m64n128, which the
+// mma.sync segments keep too (two m16 tiles, sixteen n8 tiles).
+//
+// K runs as one or two segments, each a pipeline of raw operand tiles that
+// every warp transposes into sB:
+//   * randomness (PRNG mode): the biased bytes that mxu8_wide_rand_kernel
+//     drew into rand8 ([Kr_pad][nbp]) against bigR, whose 256 rows' tile is
+//     staged with each raw tile; mma.sync (wide_segment_mma), one barrier
+//     a K tile, the transposes of tile t beside the MMA of tile t - 1;
+//   * the participants' rows against bigS: where bigS's columns repeat with
+//     every participant (the period, sec's rows a participant) and one
+//     period of the block's rows fits in shared memory, bigS is staged once
+//     and read at column c mod period by wgmma (wide_segment_wgmma: steps
+//     of two K tiles, the warpgroup's m64n128k32 products running on the
+//     tensor cores while the warps transpose the next step; one barrier a
+//     step); else as the randomness, bigS staged with each tile.
+// On the H100, at 728 clerks and a launch of 128 participants x 10,496
+// lanes, mma.sync alone (no loads, no transposes) reached 30 % of the int8
+// peak; with wgmma a launch took 5.5 ms, where the mma.sync kernel took 9.6.
+// The ones row of bigS and bigR is 1 at every column that meets an operand
+// row, and the operands are zero past their rows (rand8's rows past Kr are
+// written zero), so its sums take a row of ones: dp4a in the transposes.
+// The accumulators, spilled to shared memory, feed B1's carry chains and
+// fold; B3 adds the canonical limbs onto out.
+
+constexpr int kWideRows = 256;                    // output rows of one block
+constexpr int kWideNT = 16;                       // n8 tiles of one warp: the 128 lanes
+constexpr int kWideRing = 4;                      // mma.sync segments: ring stages, two in flight
+constexpr int kStepTiles = 2;                     // K tiles a step of the wgmma segment
+constexpr int kStepRing = 4;                      // wgmma segment: raw steps staged, three in flight
+constexpr int kSBufs = 3;                         // wgmma segment: sB buffers
+constexpr int kWideSB = kKT + 16;                 // mma.sync segments: sB's row stride
+constexpr int kWideTileA = kWideRows * kSA;       // one streamed A tile, row stride kSA
+constexpr int kCore = 128;                        // a core matrix: 8 rows x 16 bytes
+constexpr int kBChunk = kT / 8 * kCore;           // 16 K columns of sBw: 16 core matrices
+constexpr int kBBytes = kStepTiles * kKT / 16 * kBChunk;  // one sBw buffer (16 KB)
+constexpr int kAChunk = kWideRows / 8 * kCore;    // 16 columns of the staged bigS (4 KB)
+// shared memory: [raw ring][sB buffers][A: bigS staged, or the A ring] ... [a row of ones]
+constexpr int kWideRaw = kStepRing * kStepTiles * kRawBytes;
+constexpr int kWideA = kWideRaw + kSBufs * kBBytes;
+
+struct WideLayout {
+  int resident;  // bigS's period staged once (the wgmma segment)
+  int period;    // sec rows a participant: bigS's column period
+  int smem;      // the whole block
+  int vec_a;     // bigS copy width: 16, 8 or 4
+  int vec_r;     // bigR copy width
+  int vec_b;     // sec copy width: 16, 4 or 1
+  int vec_rb;    // rand8 copy width
+};
+
+inline int vec_cols(int cols, const void* a) {
+  const auto x = reinterpret_cast<uintptr_t>(a);
+  if (cols % 16 == 0 && x % 16 == 0) return 16;
+  if (cols % 8 == 0 && x % 8 == 0) return 8;
+  return 4;
+}
+
+inline int vec_lanes(int nbp, const void* a) {
+  const auto x = reinterpret_cast<uintptr_t>(a);
+  return (nbp % 16 == 0 && x % 16 == 0) ? 16 : (nbp % 4 == 0 && x % 4 == 0) ? 4 : 1;
+}
+
+WideLayout wide_layout(const Params& p, int period, const void* sec, const void* bigs,
+                       const void* bigr, const void* rand8) {
+  WideLayout l;
+  l.period = period;
+  l.vec_a = vec_cols(p.K, bigs);
+  l.vec_r = vec_cols(p.Kr_pad, bigr);
+  l.vec_b = vec_lanes(p.nbp, sec);
+  l.vec_rb = vec_lanes(p.nbp, rand8);
+  // the staged period: its 16-column chunks, and the first once more after the last
+  const int staged = (period / 16 + 1) * kAChunk;
+  l.resident = period > 0 && period % 16 == 0 && p.K % period == 0 && l.vec_a == 16 &&
+               kWideA + staged + kKT <= kMaxSmem;
+  const int ring_a = (p.Kr > 0 || !l.resident) ? kWideRing * kWideTileA : 0;
+  l.smem = round16(max_of(kWideA + max_of(l.resident ? staged : 0, ring_a) + kKT,
+                          (kWideRows + 1) * kT * 4));
+  return l;
+}
+
+// Start the copy of rows [0, kWideRows) x columns [c0, c0 + kKT) of a
+// row-major int8 matrix with lda columns into dst (row stride kSA), zero at
+// rows past a_rows and columns past lda. VEC divides lda and c0.
+template <int VEC>
+__device__ __forceinline__ void wide_load_a(int8_t* dst, const int8_t* A, int lda, int a_rows,
+                                            int c0, int tid) {
+  constexpr int kPerRow = kKT / VEC;
+  for (int idx = tid; idx < kWideRows * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow, c = (idx % kPerRow) * VEC, col = c0 + c;
+    const bool in = r < a_rows && col < lda;
+    cp_async(dst + r * kSA + c, in ? A + (size_t)r * lda + col : A, VEC, in ? VEC : 0);
+  }
+}
+
+__device__ __forceinline__ void wide_copy_a(int vec, int8_t* dst, const int8_t* A, int lda,
+                                            int a_rows, int c0, int tid) {
+  if (vec == 16)
+    wide_load_a<16>(dst, A, lda, a_rows, c0, tid);
+  else if (vec == 8)
+    wide_load_a<8>(dst, A, lda, a_rows, c0, tid);
+  else
+    wide_load_a<4>(dst, A, lda, a_rows, c0, tid);
+}
+
+__device__ __forceinline__ void wide_copy_raw(int vec, int8_t* raw, const int8_t* B, int K,
+                                              int nbp, int k0, int lane0, int tid) {
+  if (vec == 16)
+    ring_load_raw<16>(raw, B, K, nbp, k0, lane0, tid);
+  else if (vec == 4)
+    ring_load_raw<4>(raw, B, K, nbp, k0, lane0, tid);
+  else
+    ring_load_raw<1>(raw, B, K, nbp, k0, lane0, tid);
+}
+
+// Four 8x8 b16 matrices from shared memory (ldmatrix.x4): lanes 8 q to 8 q
+// + 7 give the row addresses of matrix q, and each thread receives its
+// fragment word of every matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const int8_t* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// mma.sync over one kKT tile: acc[i][j] += sA's rows 128 wg + 64 i + 16 w'
+// + [0, 16) (row stride kSA) . sB's lanes 8 j + [0, 8) (row stride
+// kWideSB). Each k step loads its fragments first, with ldmatrix: an A
+// tile's four 8x8 matrices are its a0..a3, and two n8 tiles' b0, b1 make
+// four more.
+__device__ __forceinline__ void wide_mma(int (&acc)[2][kWideNT][4], const int8_t* sA,
+                                         const int8_t* sB, int warp, int lane) {
+  const int q = lane >> 3, r8 = lane & 7;
+  const int row0 = (warp >> 2) * 128 + (warp & 3) * 16;
+#pragma unroll
+  for (int ks = 0; ks < kKT / 32; ++ks) {
+    uint32_t a[2][4], b[kWideNT / 2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ldmatrix_x4(a[i], sA + (row0 + 64 * i + (q & 1) * 8 + r8) * kSA + ks * 32 + (q >> 1) * 16);
+#pragma unroll
+    for (int np = 0; np < kWideNT / 2; ++np)
+      ldmatrix_x4(b[np], sB + (np * 16 + (q >> 1) * 8 + r8) * kWideSB + ks * 32 + (q & 1) * 16);
+#pragma unroll
+    for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        mma_s8(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b[j >> 1][2 * (j & 1)],
+               b[j >> 1][2 * (j & 1) + 1]);
+  }
+}
+
+// A segment on mma.sync: acc += A's block rows (a_rows of them real, A
+// offset to the block's first row) . B's K rows of this block's lanes, A's
+// tile staged with each raw tile in ring slot t % kWideRing of sA; ones[x]
+// += the ones row's sums for lanes 16 warp + 4 (lane & 3) + x (each thread
+// of a lane quad's column a part). Tile t waits for its copies, passes the
+// barrier, starts tile t + 2's (its slots last held tile t - 2's, done with
+// at the barrier), is transposed into sB[t & 1], and the MMA of tile t - 1
+// runs from sB[(t - 1) & 1]. Ends after a barrier, with no copy in flight.
+__device__ void wide_segment_mma(int (&acc)[2][kWideNT][4], int (&ones)[4],
+                                 unsigned char* rawring, int8_t* sB, const int8_t* w1,
+                                 int8_t* sA, const int8_t* B, int K, int vec_b, const int8_t* A,
+                                 int lda, int a_rows, int vec_a, int nbp, int lane0, int tid,
+                                 int warp, int lane) {
+  const int T = (K + kKT - 1) / kKT;
+  auto issue = [&](int t) {
+    wide_copy_raw(vec_b, reinterpret_cast<int8_t*>(rawring + (t % kWideRing) * kRawBytes), B, K,
+                  nbp, t * kKT, lane0, tid);
+    wide_copy_a(vec_a, sA + (t % kWideRing) * kWideTileA, A, lda, a_rows, t * kKT, tid);
+  };
+  for (int s = 0; s < 2; ++s) {
+    if (s < T) issue(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t <= T; ++t) {
+    if (t < T) cp_async_wait<1>();  // tile t has landed (this thread's copies)
+    __syncthreads();                // ... every thread's; tile t - 1's sB and t - 2's slots are done
+    if (t + 2 < T) issue(t + 2);
+    cp_async_commit();
+    if (t < T)
+      ring_transpose_b(sB + (t & 1) * kT * kWideSB, kWideSB,
+                       reinterpret_cast<const int8_t*>(rawring + (t % kWideRing) * kRawBytes), w1,
+                       ones, warp, lane);
+    if (t > 0)
+      wide_mma(acc, sA + ((t - 1) % kWideRing) * kWideTileA, sB + ((t - 1) & 1) * kT * kWideSB,
+               warp, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// ------------------------------------------------------- wgmma segment
+
+// Start the copy of warp w's K rows of a wgmma step, [16 w, 16 w + 16) of
+// its kStepTiles * kKT from k_step, x the block's 128 lanes into the step's
+// raw stage, where ring_load_raw puts them (zero past K and nbp): each warp
+// then transposes only the rows it copied.
+template <int VEC>
+__device__ __forceinline__ void warp_load_raw(unsigned char* stage, const int8_t* B, int K,
+                                              int nbp, int k_step, int lane0, int warp,
+                                              int lane) {
+  constexpr int kPerRow = kT / VEC;
+  int8_t* raw = reinterpret_cast<int8_t*>(stage) + (warp >> 2) * kRawBytes;
+  const int k0 = k_step + (warp >> 2) * kKT;
+  for (int idx = lane; idx < 16 * kPerRow; idx += 32) {
+    const int r = (warp & 3) * 16 + idx / kPerRow, c = (idx % kPerRow) * VEC;
+    const int k = k0 + r, ln = lane0 + c;
+    const bool in = k < K && ln < nbp;
+    int8_t* dst = raw + r * kT + 16 * raw_chunk(r, c >> 4) + (c & 15);
+    if constexpr (VEC == 1)
+      *dst = in ? B[(size_t)k * nbp + ln] : (int8_t)0;
+    else
+      cp_async(dst, in ? B + (size_t)k * nbp + ln : B, VEC, in ? VEC : 0);
+  }
+}
+
+// A wgmma matrix descriptor without swizzle (core matrices of 8 rows x 16
+// bytes, each stored as 128 contiguous bytes): the start address, lbo the
+// bytes from one core matrix to the next along K, sbo along M or N.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo, int sbo) {
+  const uint64_t a = static_cast<uint64_t>(__cvta_generic_to_shared(p));
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving other instructions that read or write the
+// accumulators across this point (wgmma reads and writes them
+// asynchronously).
+__device__ __forceinline__ void fence_operands(int (&acc)[2][kWideNT][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(acc[i][j][q])::"memory");
+}
+
+// Shared-memory writes of the generic proxy (stores, cp.async), before the
+// tensor cores read them through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += A (64 rows x 32 K, descriptor da) . B (128 lanes x 32 K, descriptor
+// db): the warpgroup's m64n128k32 int8 product, asynchronous until
+// wgmma_wait. d[j][q] is mma.sync's C fragment of n8 tile j.
+__device__ __forceinline__ void wgmma_64x128x32(int (&d)[kWideNT][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Step t's kStepTiles raw tiles (kStepTiles * kKT K rows x 128 lanes) into
+// sBw, wgmma's B layout: 16 K columns a chunk (kBChunk bytes), in it the
+// lanes' 16 core matrices of 8 lanes, each lane's 16 bytes a row. Warp w
+// takes K rows [16 w, 16 w + 16), thread l the lanes [4 l, 4 l + 4): 16
+// word reads (each a whole raw row across the warp), four 4x4 byte
+// transposes, and four 16-byte stores, turned so that a quarter warp's fall
+// on distinct banks. ones[x] += the 16 bytes of lane 4 l + x.
+__device__ __forceinline__ void wide_transpose_cm(int8_t* sBw, const unsigned char* raw,
+                                                  int (&ones)[4], int warp, int lane) {
+  const unsigned char* rt = raw + (warp >> 2) * kRawBytes;
+  const int k0 = (warp & 3) * 16;
+  uint32_t o[4][4];  // [lane x][K word]
+#pragma unroll
+  for (int kw = 0; kw < 4; ++kw) {
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 4 * kw + i;
+      r[i] = *reinterpret_cast<const uint32_t*>(rt + k * kT + 16 * raw_chunk(k, lane >> 2) +
+                                                4 * (lane & 3));
+    }
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+    o[0][kw] = __byte_perm(t0, t2, 0x5410);
+    o[1][kw] = __byte_perm(t0, t2, 0x7632);
+    o[2][kw] = __byte_perm(t1, t3, 0x5410);
+    o[3][kw] = __byte_perm(t1, t3, 0x7632);
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int kw = 0; kw < 4; ++kw) ones[x] = __dp4a((int)o[x][kw], 0x01010101, ones[x]);
+  const int turn = (lane >> 1) & 3;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int x = (s + turn) & 3, l = 4 * lane + x;
+    const uint4 v = x == 0   ? make_uint4(o[0][0], o[0][1], o[0][2], o[0][3])
+                    : x == 1 ? make_uint4(o[1][0], o[1][1], o[1][2], o[1][3])
+                    : x == 2 ? make_uint4(o[2][0], o[2][1], o[2][2], o[2][3])
+                             : make_uint4(o[3][0], o[3][1], o[3][2], o[3][3]);
+    *reinterpret_cast<uint4*>(sBw + warp * kBChunk + (l >> 3) * kCore + (l & 7) * 16) = v;
+  }
+}
+
+// The participants' segment on wgmma: bigS's period (rows of the block, A
+// offset to its first) staged once into sAw as wgmma's A layout (16-column
+// chunks of kAChunk bytes, the rows' 32 core matrices in each, and chunk 0
+// once more after the last, so that a k32 step starting at the last chunk
+// reads on into the first); then steps of kStepTiles K tiles. Each warp
+// copies and transposes its own 16 K rows of a step, so a step needs one
+// block barrier: step t waits for the warp's copies (a warp barrier),
+// starts step t + 3's into step t - 1's stage, is transposed into
+// sBw[t % 3] (ones[x] for lanes 4 lane + x), passes the barrier (sBw[t %
+// 3] whole; the products of step t - 3, which read it, done before the
+// last barrier), and its products are issued: for each k32 step the
+// warpgroup's two m64 tiles against the 128 lanes, bigS's columns from
+// (32 ks + start) mod period. They run while the warps go on to step t +
+// 1; the wait after the issue leaves one step in flight. Ends after a
+// barrier, with no copy or product in flight.
+__device__ void wide_segment_wgmma(int (&acc)[2][kWideNT][4], int (&ones)[4],
+                                   unsigned char* rawring, int8_t* sBw, int8_t* sAw, int period,
+                                   const int8_t* B, int K, int vec_b, const int8_t* A, int lda,
+                                   int a_rows, int nbp, int lane0, int tid, int warp, int lane) {
+  constexpr int KI = kStepTiles * kKT, STAGE = kStepTiles * kRawBytes;
+  const int T = (K + KI - 1) / KI, chunks = period / 16, wg = warp >> 2;
+  auto issue = [&](int t) {
+    unsigned char* stage = rawring + (t % kStepRing) * STAGE;
+    if (vec_b == 16)
+      warp_load_raw<16>(stage, B, K, nbp, t * KI, lane0, warp, lane);
+    else if (vec_b == 4)
+      warp_load_raw<4>(stage, B, K, nbp, t * KI, lane0, warp, lane);
+    else
+      warp_load_raw<1>(stage, B, K, nbp, t * KI, lane0, warp, lane);
+  };
+  for (int idx = tid; idx < kWideRows * (chunks + 1); idx += kThreads) {
+    const int r = idx % kWideRows, c = idx / kWideRows;
+    const bool in = r < a_rows;
+    cp_async(sAw + c * kAChunk + (r >> 3) * kCore + (r & 7) * 16,
+             in ? A + (size_t)r * lda + 16 * (c % chunks) : A, 16, in ? 16 : 0);
+  }
+  for (int s = 0; s < kStepRing - 1; ++s) {
+    if (s < T) issue(s);
+    cp_async_commit();
+  }
+  int start = 0;  // step t's first column of bigS, mod period
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<kStepRing - 2>();  // this thread's copies of step t (and, first, of bigS)
+    __syncwarp();                    // ... its warp's
+    if (t + kStepRing - 1 < T) issue(t + kStepRing - 1);
+    cp_async_commit();
+    int8_t* sb = sBw + (t % kSBufs) * kBBytes;
+    wide_transpose_cm(sb, rawring + (t % kStepRing) * STAGE, ones, warp, lane);
+    fence_proxy_async();  // the stores above, and bigS's copies, before the tensor cores' reads
+    __syncthreads();
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KI / 32; ++ks) {
+      int c = start / 16 + 2 * ks;
+      while (c >= chunks) c -= chunks;
+      const uint64_t db = gmma_desc(sb + 2 * ks * kBChunk, kBChunk, kCore);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wgmma_64x128x32(acc[i], gmma_desc(sAw + c * kAChunk + (16 * wg + 8 * i) * kCore, kAChunk,
+                                          kCore),
+                        db);
+    }
+    wgmma_commit();
+    fence_operands(acc);
+    wgmma_wait<1>();
+    start += KI;
+    while (start >= period) start -= period;
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// One lane block of mxu8_wide_kernel (lanes [lane0, lane0 + kT)).
+template <bool RESIDENT>
+__device__ void wide_lane_block(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
+                                const int8_t* __restrict__ bigr, const int8_t* __restrict__ rand8,
+                                const uint32_t* __restrict__ tables, int32_t* __restrict__ out,
+                                const Params& p, const WideLayout& lay, int accumulate,
+                                unsigned char* smem, const int8_t* w1, int lane0, int i0, int r0,
+                                int a_rows, int tid, int warp, int lane) {
+  unsigned char* rawring = smem;
+  int8_t* sB = reinterpret_cast<int8_t*>(smem + kWideRaw);
+  int8_t* sA = reinterpret_cast<int8_t*>(smem + kWideA);
+  int32_t* sAcc = reinterpret_cast<int32_t*>(smem);  // after the K loop
+  const int L8 = p.L8, per_slice = kWideRows / L8;
+
+  int acc[2][kWideNT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+  // the ones row's sums: of the mma.sync segments for lanes 16 warp + 4
+  // (lane & 3) + x, of the wgmma segment for lanes 4 lane + x
+  int ones_m[4] = {0, 0, 0, 0}, ones_w[4] = {0, 0, 0, 0};
+  // the wgmma segment first, while nothing else has written the
+  // accumulators (ptxas serializes the products otherwise)
+  if constexpr (RESIDENT)
+    wide_segment_wgmma(acc, ones_w, rawring, sB, sA, lay.period, sec, p.K, lay.vec_b,
+                       bigs + (size_t)r0 * p.K, p.K, a_rows, p.nbp, lane0, tid, warp, lane);
+  else
+    wide_segment_mma(acc, ones_m, rawring, sB, w1, sA, sec, p.K, lay.vec_b,
+                     bigs + (size_t)r0 * p.K, p.K, a_rows, lay.vec_a, p.nbp, lane0, tid, warp,
+                     lane);
+  if (p.Kr > 0)
+    wide_segment_mma(acc, ones_m, rawring, sB, w1, sA, rand8, p.Kr_pad, lay.vec_rb,
+                     bigr + (size_t)r0 * p.Kr_pad, p.Kr_pad, a_rows, lay.vec_r, p.nbp, lane0, tid,
+                     warp, lane);
+  // every thread of a lane quad's column (lane & 3) holds part of its sums
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int m = 4; m < 32; m <<= 1) ones_m[x] += __shfl_xor_sync(0xFFFFFFFFu, ones_m[x], m);
+
+  // spill this slice's rows (the segments ended with a barrier): c0/c1 at
+  // row g, c2/c3 at row g + 8 of each m16 tile; the ones row after them
+  int32_t* sOnes = sAcc + kWideRows * kT;
+  if (tid < kT) sOnes[tid] = 0;
+  __syncthreads();
+  const int rows = min(per_slice, p.n - i0) * L8;
+  {
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = (warp >> 2) * 128 + (warp & 3) * 16;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kWideNT; ++j) {
+        const int r = row0 + 64 * i + g, col = 8 * j + 2 * t;
+        if (r < rows) {
+          sAcc[r * kT + col] = acc[i][j][0];
+          sAcc[r * kT + col + 1] = acc[i][j][1];
+        }
+        if (r + 8 < rows) {
+          sAcc[(r + 8) * kT + col] = acc[i][j][2];
+          sAcc[(r + 8) * kT + col + 1] = acc[i][j][3];
+        }
+      }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if (g == 0) atomicAdd(sOnes + warp * 16 + 4 * t + x, ones_m[x]);
+      atomicAdd(sOnes + 4 * lane + x, ones_w[x]);
+    }
+  }
+  __syncthreads();
+  // epilogue: two threads per lane. Below 2^32, with chains of at most 8
+  // bytes, the column value v is a uint64 and its residue v mod p, the
+  // canonical result every fold reaches, is taken at once: the byte folds
+  // cost 1.9 ms a launch of 128 participants at 728 clerks a lane.
+  const int ll = tid % kT, half = tid / kT, gl = lane0 + ll;
+  const uint32_t* c1 = tables + p.off_c1;
+  const uint32_t* pl = tables + p.off_p;
+  const uint32_t s128 = (uint32_t)sOnes[ll] * 128u;
+  const bool narrow = p.L <= 2 && L8 + p.n_res1 <= 8;
+  const uint64_t pm = pl[0] | (p.L > 1 ? (uint64_t)pl[1] << 16 : 0);
+  uint32_t bytes[kMaxB];
+  for (int i = half; i * L8 < rows; i += kThreads / kT) {
+    if (narrow) {
+      uint64_t v = 0;
+      uint32_t carry = 0;
+      for (int c = 0; c < L8; ++c) {
+        const uint32_t t =
+            (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[(i0 + i) * L8 + c] + s128 + carry;
+        v |= (uint64_t)(t & 0xFFu) << (8 * c);
+        carry = t >> 8;
+      }
+      if (gl >= p.nbp) continue;
+      uint64_t r = (v + ((uint64_t)carry << (8 * L8))) % pm;
+      int32_t* o = out + (size_t)(i0 + i) * p.nbp + gl;  // limb l at o + l * n * nbp
+      const size_t limb = (size_t)p.n * p.nbp;
+      if (accumulate) {
+        r += (uint32_t)o[0] | (p.L > 1 ? (uint64_t)(uint32_t)o[limb] << 16 : 0);
+        if (r >= pm) r -= pm;
+      }
+      o[0] = (int32_t)(r & 0xFFFFu);
+      if (p.L > 1) o[limb] = (int32_t)(r >> 16);
+      continue;
+    }
+    uint32_t carry = 0;
+    for (int c = 0; c < L8; ++c) {
+      const uint32_t t =
+          (uint32_t)sAcc[(i * L8 + c) * kT + ll] + c1[(i0 + i) * L8 + c] + s128 + carry;
+      bytes[c] = t & 0xFFu;
+      carry = t >> 8;
+    }
+    for (int r = 0; r < p.n_res1; ++r) {
+      bytes[L8 + r] = carry & 0xFFu;
+      carry >>= 8;
+    }
+    if (gl >= p.nbp) continue;
+    if (accumulate)
+      fold_and_emit<kAcc>(bytes, L8 + p.n_res1, p, tables, out, nullptr, p.n, i0 + i, ll, gl,
+                          true, true);
+    else
+      fold_and_store(bytes, L8 + p.n_res1, p, tables, out, p.n, i0 + i, gl);
+  }
+  __syncthreads();  // the next lane block's copies land where sAcc lies
+}
+
+
+// Block (slice blockIdx.x, group blockIdx.y) takes the lane blocks
+// blockIdx.y, + gridDim.y, ... in turn (the grid fills the SMs once, so
+// that the slices of a lane block run side by side and share its sec tiles
+// in L2): for each, stage 1 for its clerks' rows through the segments, then
+// B1's carry chains and fold; with `accumulate` (B3) the canonical limbs
+// are added mod p onto out.
+template <bool RESIDENT>
+__global__ void __launch_bounds__(kThreads, 1)
+mxu8_wide_kernel(const int8_t* __restrict__ sec, const int8_t* __restrict__ bigs,
+                 const int8_t* __restrict__ bigr, const int8_t* __restrict__ rand8,
+                 const uint32_t* __restrict__ tables, int32_t* __restrict__ out, Params p,
+                 WideLayout lay, int accumulate) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* w1 = reinterpret_cast<int8_t*>(smem + lay.smem - kKT);  // kKT ones, past the epilogue's
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int L8 = p.L8, per_slice = kWideRows / L8;
+  const int i0 = blockIdx.x * per_slice, r0 = i0 * L8;
+  const int a_rows = min(kWideRows, p.n_pad - r0);
+  if (tid < kKT / 4) reinterpret_cast<uint32_t*>(w1)[tid] = 0x01010101u;
+  for (int lb = blockIdx.y; lb * kT < p.nbp; lb += gridDim.y)
+    wide_lane_block<RESIDENT>(sec, bigs, bigr, rand8, tables, out, p, lay, accumulate, smem, w1,
+                              lb * kT, i0, r0, a_rows, tid, warp, lane);
+}
+
+// PRNG mode of a wide launch: the randomness operand of every lane into
+// rand8 ([Kr_pad][nbp], biased bytes in bigR's (c, parity, w) row order).
+// Thread (lane gl, word group blockIdx.y) sums its rp draws as B1 does
+// (accR, accO per PRNG word, the same Philox counters), then writes the
+// bytes of accE = accR - (accO << 16) and accO; rows [Kr, Kr_pad), bigR's
+// zero columns, are written zero.
+__global__ void __launch_bounds__(kT)
+mxu8_wide_rand_kernel(int8_t* __restrict__ rand8, Params p) {
+  const int gl = blockIdx.x * kT + threadIdx.x, g = blockIdx.y;
+  if (gl >= p.nbp) return;
+  uint32_t accR[4] = {0, 0, 0, 0}, accO[4] = {0, 0, 0, 0};
+#pragma unroll 1
+  for (int j = 0; j < p.rp; ++j) {
+    uint32_t c[4] = {(uint32_t)gl, (uint32_t)j, (uint32_t)g, 0u};
+    philox4x32_10(c, p.seed, 0u);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      accR[q] += c[q];
+      accO[q] += c[q] >> 16;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int w = 4 * g + q;
+    if (w >= p.wpp) break;
+    // accR = sum(lo) + 2^16 sum(hi) mod 2^32 and sum(lo) < 2^32: exact
+    const uint32_t accE = accR[q] - (accO[q] << 16);
+    for (int cb = 0; cb < p.n_bytes; ++cb) {
+      rand8[(size_t)((2 * cb) * p.wpp + w) * p.nbp + gl] = (int8_t)(byte_of(accE, cb) ^ 0x80u);
+      rand8[(size_t)((2 * cb + 1) * p.wpp + w) * p.nbp + gl] =
+          (int8_t)(byte_of(accO[q], cb) ^ 0x80u);
+    }
+  }
+  if (g == 0)
+    for (int r = p.Kr; r < p.Kr_pad; ++r) rand8[(size_t)r * p.nbp + gl] = 0;
+}
+
+template <bool RESIDENT>
+int run_wide(dim3 grid, const int8_t* sec, const int8_t* bigs, const int8_t* bigr,
+             const int8_t* rand8, const uint32_t* tables, int32_t* out, const Params& p,
+             const WideLayout& lay, int accumulate, cudaStream_t stream) {
+  const int err = (int)cudaFuncSetAttribute(
+      mxu8_wide_kernel<RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+  if (err) return err;
+  mxu8_wide_kernel<RESIDENT><<<grid, kThreads, lay.smem, stream>>>(sec, bigs, bigr, rand8, tables,
+                                                                   out, p, lay, accumulate);
+  return (int)cudaGetLastError();
+}
+
+// Mode 3's launch: the randomness kernel (PRNG mode), then the wide kernel
+// on (slices, lane blocks); period is sec's rows a participant.
+int launch_wide(const int8_t* sec, const int8_t* bigs, const int8_t* bigr, int8_t* rand8,
+                const uint32_t* tables, int32_t* out, const Params& p, int period,
+                int accumulate, cudaStream_t stream) {
+  if (p.n2 || p.n_chunks != 1 || (p.Kr > 0 && !rand8)) return (int)cudaErrorInvalidValue;
+  const WideLayout lay = wide_layout(p, period, sec, bigs, bigr, rand8);
+  if (lay.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int lane_blocks = (p.nbp + kT - 1) / kT, per_slice = kWideRows / p.L8;
+  if (p.Kr > 0) {
+    mxu8_wide_rand_kernel<<<dim3(lane_blocks, (p.wpp + 3) / 4), kT, 0, stream>>>(rand8, p);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  // the grid fills the SMs once: every slice, and as many groups of lane
+  // blocks as leave one block an SM
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int slices = (p.n + per_slice - 1) / per_slice;
+  const dim3 grid(slices, min(lane_blocks, max_of(1, sms / slices)));
+  return lay.resident
+             ? run_wide<true>(grid, sec, bigs, bigr, rand8, tables, out, p, lay, accumulate, stream)
+             : run_wide<false>(grid, sec, bigs, bigr, rand8, tables, out, p, lay, accumulate,
+                               stream);
+}
+
+#endif  // SDA_MXU8_MODE == 3
+
 // Raise a kernel's dynamic shared memory limit to lay.smem.
 template <typename Kernel>
 int set_smem(Kernel kernel, const Layout& lay) {
@@ -1215,7 +1870,25 @@ int parse_params(const void* iparams, int n_iparams, Params& p) {
 
 }  // namespace
 
-#if SDA_MXU8_MODE != 2
+#if SDA_MXU8_MODE == 3
+// C entry point of B1 and B3 on wide plans (SDA_MXU8_MODE 3): the
+// arguments of sda_mxu8_fused, plus rand8, an int8 [Kr_pad][nbp] scratch
+// operand that PRNG mode fills (unused, and may be null, with caller
+// randomness), period, sec's rows a participant, and accumulate (B3: out
+// holds the running sums on entry). Returns a cudaError_t.
+extern "C" int sda_mxu8_wide(const void* sec, const void* bigs, const void* bigr, void* rand8,
+                             const void* tables, void* out, const void* iparams, int n_iparams,
+                             int period, int accumulate, void* stream) {
+  Params p;
+  const int bad = parse_params(iparams, n_iparams, p);
+  if (bad) return bad;
+  return launch_wide(static_cast<const int8_t*>(sec), static_cast<const int8_t*>(bigs),
+                     static_cast<const int8_t*>(bigr), static_cast<int8_t*>(rand8),
+                     static_cast<const uint32_t*>(tables), static_cast<int32_t*>(out), p, period,
+                     accumulate, static_cast<cudaStream_t>(stream));
+}
+
+#elif SDA_MXU8_MODE != 2
 // C entry point of B1 and B3 (SDA_MXU8_MODE 0 and 1). iparams holds the
 // kNParams ints of Params in field order (seed and seed_stride as their
 // 32-bit patterns). For B3, out holds the running sums on entry. Returns a
@@ -1263,6 +1936,7 @@ extern "C" int sda_mxu8_chunked(const void* sec, const void* bigs, const void* b
 }
 #endif
 
+#if SDA_MXU8_MODE != 3
 // The launch configuration the entry point would use for these parameters:
 // dynamic shared memory per block and resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for B2 of its split
@@ -1277,3 +1951,4 @@ extern "C" int sda_mxu8_occupancy(const void* iparams, int n_iparams, int epilog
     return occupancy<decltype(mt)::value>(p, epilogue, smem_bytes, blocks_per_sm);
   });
 }
+#endif

@@ -53,6 +53,13 @@ Two variants of the kernel go past it, as the reference's do:
   port's form of the reference's ``input_output_aliases`` and its donated
   accumulator: the host-driven streaming loop keeps one running buffer.
 
+**Wide plans** (:func:`is_wide`: more than ``MAX_MT_ROWS`` output rows, as
+a committee of hundreds of clerks has) run combine-only and one chunk a
+call, on a variant of their own (``csrc/mxu8.cu`` mode 3): the randomness
+operand drawn once per call, the output rows tiled over the grid, wgmma
+where one participant's columns of ``bigs`` fit in shared memory. Its
+arithmetic is B1's and B3's, so the plain version serves it unchanged.
+
 **Randomness per chunk.** Chunk ``c`` of a chunked call with seed ``s``
 draws with key ``((s + c * grid_t) mod 2^32, 0)``, ``grid_t = NBP //
 lanes``: the seed the reference's streaming loop passes for chunk ``c``
@@ -94,6 +101,7 @@ __all__ = [
     "split_ranges",
     "chunked_splits",
     "launch_splits",
+    "is_wide",
 ]
 
 _W8 = 8
@@ -108,19 +116,25 @@ _MAX_RAND_PARTICIPANTS = 65793
 # the kernels' K tile (rows) and ring depth (csrc/mxu8.cu: kKT, kStages)
 KT = 64
 RING_STAGES = 4
+# output rows (n * L8 + 1) that B1-B3's MT tiles hold (csrc/mxu8.cu: kMaxMT);
+# wider plans run the wide variant
+MAX_MT_ROWS = 192
 
 # Launches of each variant of the CUDA kernel (one per call on a CUDA
 # tensor): B1 single chunk, B2 chunked (a memset and two kernels), B3
-# accumulate.
+# accumulate; B1 and B3 on wide plans (the randomness kernel in PRNG mode,
+# then the wide kernel) count apart, as mxu8_wide_launches.
 mxu8_launches = 0
 mxu8_chunked_launches = 0
 mxu8_acc_launches = 0
+mxu8_wide_launches = 0
 
 # Each variant is its own build of csrc/mxu8.cu: name -> (source, defines).
 KERNEL_VARIANTS = {
     "mxu8_fused": ("mxu8.cu", ("SDA_MXU8_MODE=0",)),
     "mxu8_acc": ("mxu8.cu", ("SDA_MXU8_MODE=1",)),
     "mxu8_chunked": ("mxu8.cu", ("SDA_MXU8_MODE=2",)),
+    "mxu8_wide": ("mxu8.cu", ("SDA_MXU8_MODE=3",)),
 }
 
 
@@ -238,6 +252,20 @@ def _reduced_row8(mxu8: Mxu8Context, m_col, shift: int) -> np.ndarray:
     return limbs8_host(np.array(vals, dtype=object), mxu8.L8).reshape(-1)
 
 
+def _reduced_rows8(mxu8: Mxu8Context, m_rows, shifts) -> np.ndarray:
+    """:func:`_reduced_row8` of each row of ``m_rows`` ``[R, n]`` (canonical
+    entries) with its shift: ``[R, n*L8]`` uint8. In int64 below p = 2^31,
+    where every product of two residues is below 2^62; else row by row in
+    Python ints."""
+    p, L8 = mxu8.ctx.p, mxu8.L8
+    if p >= (1 << 31):
+        return np.stack([_reduced_row8(mxu8, row, int(s)) for row, s in zip(m_rows, shifts)])
+    scale = np.array([pow(2, int(s), p) for s in shifts], dtype=np.int64)
+    vals = np.asarray(m_rows, dtype=np.int64).reshape(len(scale), -1) * scale[:, None] % p
+    limbs = (vals[..., None] >> (_W8 * np.arange(L8, dtype=np.int64))) & _MASK8
+    return limbs.astype(np.uint8).reshape(len(scale), -1)
+
+
 def _finish_big8(e_cols: np.ndarray, n_pad: int):
     """Unbiased entry matrix ``[rows, n*L8]`` -> (biased int8 ``[n_pad,
     rows]`` with the ones column at ``n*L8``, per-column bias constant
@@ -246,9 +274,9 @@ def _finish_big8(e_cols: np.ndarray, n_pad: int):
     if cols + 1 > n_pad:
         raise ValueError("n_pad too small")
     big = np.zeros((n_pad, rows), dtype=np.int8)
-    big[:cols] = (e_cols.astype(np.int16) - _BIAS).astype(np.int8).T
+    big[:cols] = (e_cols ^ np.uint8(_BIAS)).view(np.int8).T  # b ^ 0x80 read as int8 is b - 128
     big[cols] = 1  # ones column: acc[ones] = sum of biased operand values
-    C = _BIAS * e_cols.astype(np.int64).sum(axis=0)
+    C = _BIAS * e_cols.sum(axis=0, dtype=np.int64)
     return big, C
 
 
@@ -263,21 +291,16 @@ def _big8_slots(mxu8: Mxu8Context, m_normal, slot_rows, n_pad: int,
     """
     m_normal = np.asarray(m_normal, dtype=object)
     L8 = mxu8.L8
-    cache: dict[tuple[int, int], np.ndarray] = {}
-
-    def reduced(j, l1):
-        got = cache.get((j, l1))
-        if got is None:
-            got = _reduced_row8(mxu8, m_normal[j], _W8 * l1)
-            cache[(j, l1)] = got
-        return got
-
+    slots = sorted(set(slot_rows))
+    # every distinct (slot, byte) row once, then gathered in operand order
+    uniq = _reduced_rows8(mxu8, m_normal[[j for j in slots for _ in range(L8)]],
+                          [_W8 * l1 for _ in slots for l1 in range(L8)])
+    at = {j: i * L8 for i, j in enumerate(slots)}
     if limb_major:
-        order = [(j, l1) for l1 in range(L8) for j in slot_rows]
+        order = [at[j] + l1 for l1 in range(L8) for j in slot_rows]
     else:
-        order = [(j, l1) for j in slot_rows for l1 in range(L8)]
-    e = np.stack([reduced(j, l1) for j, l1 in order])  # [rows, n*L8]
-    return _finish_big8(e, n_pad)
+        order = [at[j] + l1 for j in slot_rows for l1 in range(L8)]
+    return _finish_big8(uniq[order], n_pad)  # [rows, n*L8] before the finish
 
 
 def _big8_randsum(mxu8: Mxu8Context, m_normal, k: int, rand_count: int,
@@ -295,24 +318,21 @@ def _big8_randsum(mxu8: Mxu8Context, m_normal, k: int, rand_count: int,
     m_normal = np.asarray(m_normal, dtype=object)
     n = m_normal.shape[1]
     L16r = mxu8.L16r
-    rows = []
-    zero = np.zeros(n * mxu8.L8, dtype=np.uint8)
-    cache: dict[tuple[int, int], np.ndarray] = {}
+    keys: dict[tuple[int, int], int] = {}  # (slot, shift) -> row of the distinct rows
+    order = []
     for c in range(n_bytes):
         for parity in (0, 1):
             for w in range(words_per_p):
                 f = 2 * w + parity
                 if f >= rand_count * L16r:
-                    rows.append(zero)
+                    order.append(-1)  # padding: the zero row
                     continue
-                slot, l1 = k + f // L16r, f % L16r
-                key = (slot, _W16 * l1 + _W8 * c)
-                got = cache.get(key)
-                if got is None:
-                    got = _reduced_row8(mxu8, m_normal[slot], key[1])
-                    cache[key] = got
-                rows.append(got)
-    return _finish_big8(np.stack(rows), n_pad)
+                key = (k + f // L16r, _W16 * (f % L16r) + _W8 * c)
+                order.append(keys.setdefault(key, len(keys)))
+    uniq = np.zeros((len(keys) + 1, n * mxu8.L8), dtype=np.uint8)
+    if keys:
+        uniq[:-1] = _reduced_rows8(mxu8, m_normal[[s for s, _ in keys]], [sh for _, sh in keys])
+    return _finish_big8(uniq[order], n_pad)
 
 
 def _big8_stage2(mxu8: Mxu8Context, rec, n: int, n2: int, n_res1: int,
@@ -320,12 +340,9 @@ def _big8_stage2(mxu8: Mxu8Context, rec, n: int, n2: int, n_res1: int,
     """Stage-2 (reconstruction) matrix: limb-major rows over the stage-1
     carry-chain output (``L8 + n_res1`` bytes per clerk)."""
     rec = np.asarray(rec, dtype=object)
-    rows = [
-        _reduced_row8(mxu8, rec[i], _W8 * l1)
-        for l1 in range(mxu8.L8 + n_res1)
-        for i in range(n)
-    ]
-    return _finish_big8(np.stack(rows), n_pad2)
+    rows = [(i, _W8 * l1) for l1 in range(mxu8.L8 + n_res1) for i in range(n)]
+    e = _reduced_rows8(mxu8, rec[[i for i, _ in rows]], [s for _, s in rows])
+    return _finish_big8(e, n_pad2)
 
 
 def _chunk_consts8(mxu8: Mxu8Context, n_chunks: int) -> np.ndarray:
@@ -481,6 +498,7 @@ class Mxu8Plan:
     n: int  # clerks (stage-1 outputs)
     n_out: int  # n, or k2 with fused reconstruction
     rows: int  # operand rows of one chunk
+    period: int  # operand rows of one participant: bigs's columns repeat with it
     n_chunks: int  # chunks stacked along the operand's rows
     n_pad: int
     rp: int  # randomness draws summed per slot (0: caller randomness)
@@ -549,9 +567,10 @@ def mxu8_plan(
 
     slots = list(range(k)) if has_prng else list(range(m))
     n_pad = -(-(n * L8 + 1) // 32) * 32
-    bigs, C1 = _big8_slots(
-        mxu8, share_matrix, [j for _ in range(p_count) for j in slots], n_pad
-    )
+    # one participant's columns; every participant's are the same (tiled on
+    # the device below), and so is each one's share of the bias constants
+    bigs, C1 = _big8_slots(mxu8, share_matrix, slots, n_pad)
+    C1 = C1 * p_count
     Kr = 0
     bigr = np.zeros((n_pad, 32), dtype=np.int8)
     if rp:
@@ -566,7 +585,7 @@ def mxu8_plan(
     # Every row adds at most 255*255 to a column's unbiased value and the
     # uint32 carry chain needs column + incoming carry < 2^32, so
     # K_rows * (255^2 + 255) < 2^32, i.e. K_rows <= 65793.
-    K_rows = bigs.shape[1] + Kr
+    K_rows = bigs.shape[1] * p_count + Kr
     row_bound = K_rows * _MASK8 * _MASK8
     if K_rows * (_MASK8 * _MASK8 + _MASK8) >= (1 << 32):
         raise ValueError(
@@ -602,10 +621,11 @@ def mxu8_plan(
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return Mxu8Plan(
-        mxu8=mxu8, n=n, n_out=n2 if n2 else n, rows=rows, n_chunks=n_chunks, n_pad=n_pad,
+        mxu8=mxu8, n=n, n_out=n2 if n2 else n, rows=rows, period=rows // p_count,
+        n_chunks=n_chunks, n_pad=n_pad,
         rp=rp, words_per_p=words_per_p, n_bytes=n_bytes, n_res1=n_res1,
         n2=n2, n_res2=n_res2, use_special=use_special,
-        bigs=dev(bigs), bigr=dev(bigr), Kr=Kr, big2=dev(big2),
+        bigs=dev(bigs).repeat(1, p_count), bigr=dev(bigr), Kr=Kr, big2=dev(big2),
         c1=dev(C1.astype(np.int64)), c2=dev(C2.astype(np.int64)),
         consts=dev(consts.astype(np.int64)), tables=dev(table),
     )
@@ -809,7 +829,16 @@ def _kernel_params(plan: Mxu8Plan, nbp: int, seed: int, seed_stride: int) -> np.
     ], dtype=np.int32)
 
 
+def is_wide(plan: Mxu8Plan) -> bool:
+    """Whether the plan's ``n * L8 + 1`` output rows exceed what B1-B3's MT
+    tiles hold: it then runs the wide variant, combine-only and one chunk a
+    call."""
+    return plan.n * plan.mxu8.L8 + 1 > MAX_MT_ROWS
+
+
 def _variant(plan: Mxu8Plan, acc: bool) -> str:
+    if is_wide(plan):
+        return "mxu8_wide"
     return "mxu8_chunked" if plan.n_chunks > 1 else "mxu8_acc" if acc else "mxu8_fused"
 
 
@@ -832,7 +861,8 @@ def _launch_mxu8_kernel(
     """One call of ``csrc/mxu8.cu`` on the current stream: the chunked
     variant (B2: a memset, the split kernel and the epilogue kernel) when
     the plan has several chunks, the accumulate variant (B3) with
-    ``acc_in``, else the single-chunk kernel (B1)."""
+    ``acc_in``, else the single-chunk kernel (B1); a wide plan runs the
+    wide variant (:func:`_launch_wide`)."""
     global mxu8_launches, mxu8_chunked_launches, mxu8_acc_launches
     from sda_tpu_torch.ops.cuda_build import load_kernel_library
 
@@ -841,8 +871,8 @@ def _launch_mxu8_kernel(
     if plan.bigs.device != sec.device:
         raise ValueError("the plan's tensors lie on another device than sec_planar")
     mxu8 = plan.mxu8
-    if (plan.n * mxu8.L8 + 1 + 15) // 16 > 12:
-        raise ValueError("n * L8 + 1 > 192 output rows: not supported by the kernel")
+    if is_wide(plan):
+        return _launch_wide(plan, sec, seed, acc_in)
     variant = _variant(plan, acc_in is not None)
     lib = load_kernel_library(*KERNEL_VARIANTS[variant])
     nbp = sec.shape[1]
@@ -881,6 +911,41 @@ def _launch_mxu8_kernel(
     return out
 
 
+def _launch_wide(plan: Mxu8Plan, sec: torch.Tensor, seed: int, acc_in) -> torch.Tensor:
+    """B1, or B3 with ``acc_in``, on a wide plan (``csrc/mxu8.cu`` mode 3):
+    in PRNG mode the randomness kernel draws the operand into a scratch
+    ``[Kr_pad, NBP]`` int8 tensor, then the wide kernel tiles the output
+    rows over the grid."""
+    global mxu8_wide_launches
+    from sda_tpu_torch.ops.cuda_build import load_kernel_library
+
+    if plan.n2 or plan.n_chunks > 1:
+        raise ValueError(
+            f"n * L8 + 1 = {plan.n * plan.mxu8.L8 + 1} > {MAX_MT_ROWS} output rows: the kernel "
+            "runs such plans combine-only (reconstruct in a launch of its own) and one chunk a "
+            "call (stream the chunks)")
+    lib = load_kernel_library(*KERNEL_VARIANTS["mxu8_wide"])
+    nbp = sec.shape[1]
+    params = _kernel_params(plan, nbp, seed, 0)
+    out = acc_in if acc_in is not None else torch.empty(
+        (plan.mxu8.ctx.L * plan.n, nbp), dtype=torch.int32, device=sec.device)
+    rand8 = (torch.empty((plan.bigr.shape[1], nbp), dtype=torch.int8, device=sec.device)
+             if plan.Kr else None)
+    with torch.cuda.device(sec.device):
+        stream = torch.cuda.current_stream(sec.device).cuda_stream
+        fn = lib.sda_mxu8_wide
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(sec.data_ptr(), plan.bigs.data_ptr(), plan.bigr.data_ptr(),
+                 rand8.data_ptr() if rand8 is not None else None, plan.tables.data_ptr(),
+                 out.data_ptr(), params.ctypes.data, len(params), plan.period,
+                 int(acc_in is not None), stream)
+    if err != 0:
+        raise RuntimeError(f"mxu8_wide kernel launch failed: cudaError {err}")
+    mxu8_wide_launches += 1
+    return out
+
+
 def kernel_occupancy(plan: Mxu8Plan, nbp: int, acc: bool = False,
                      epilogue: bool = False) -> tuple[int, int]:
     """(dynamic shared memory per block in bytes, resident blocks per SM)
@@ -891,6 +956,8 @@ def kernel_occupancy(plan: Mxu8Plan, nbp: int, acc: bool = False,
     nothing."""
     from sda_tpu_torch.ops.cuda_build import load_kernel_library
 
+    if is_wide(plan):
+        raise ValueError("a wide plan's launch has no occupancy query")
     variant = _variant(plan, acc)
     fn = load_kernel_library(*KERNEL_VARIANTS[variant]).sda_mxu8_occupancy
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]

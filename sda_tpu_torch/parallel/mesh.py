@@ -37,12 +37,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from sda_tpu_torch.engine import TorchAggregationEngine
 from sda_tpu_torch.ops.modmat import modmat, uniform_limbs
-from sda_tpu_torch.ops.mxu8 import mxu8_plan, run_mxu8
+from sda_tpu_torch.ops.mxu8 import run_mxu8
 from sda_tpu_torch.ops.mxu_kernel import run_mxu
 from sda_tpu_torch.parallel.collectives import all_gather_axis, all_to_all_axis, psum_mod
 
@@ -125,7 +126,6 @@ class ShardedAggregationPipeline:
             raise ValueError("clerk axis size must divide share_count")
         self.n_shards = self.axes["p"] * n_c
         self.shard_index = mesh.get_local_rank("p") * n_c + mesh.get_local_rank("c")
-        self._subset_plans: dict = {}
 
     # ------------------------------------------------------------ sharding
 
@@ -274,35 +274,24 @@ class ShardedAggregationPipeline:
             raise ValueError("aggregate_mxu8_streaming requires at least one chunk")
         return acc
 
-    def _mxu8_finish(self, part, plan, clerks=None):
-        """All-reduce the partial sums, keep the ``clerks`` rows (all by
-        default), reconstruct through one B1 launch of ``plan`` and gather:
-        ``[NBP, k2, L]``."""
+    def _mxu8_finish(self, part, clerks=None):
+        """All-reduce the partial sums, reconstruct through the engine's
+        :meth:`~sda_tpu_torch.engine.TorchAggregationEngine.reconstruct_lm`
+        (from the ``clerks`` rows alone when given) and gather: ``[NBP, k2,
+        L]``."""
         eng, L = self.engine, self.engine.ctx.L
         x = self._psum_shards(part.reshape(L, eng.spec.share_count, -1).permute(1, 2, 0))
-        if clerks is not None:
-            x = x[list(clerks)]  # the surviving clerks only, [s, NBP_loc, L]
         nbp = x.shape[1]
-        # biased bytes, slot-major rows (clerk i, byte j): [s * L8, NBP_loc]
-        c8 = torch.stack(
-            [(((x[..., j // 2] >> (8 * (j % 2))) & 0xFF) - 128).to(torch.int8)
-             for j in range(eng.mxu8.L8)],
-            dim=1,
-        ).reshape(-1, nbp)
-        rec = run_mxu8(plan, c8, 0, lanes=min(_LANES_MAX, nbp))  # [L * k2, NBP_loc]
+        comb = x.permute(2, 0, 1).reshape(-1, nbp)  # limb-major [L * n, NBP_loc]
+        rec = eng.reconstruct_lm(comb, min(_LANES_MAX, nbp), clerks)
         return all_gather_axis(rec.reshape(L, -1, nbp).permute(2, 1, 0), self.mesh, "d", 0)
-
-    def _full_finish(self, part):
-        eng = self.engine
-        rows = eng.spec.share_count * eng._require_mxu8().L8
-        return self._mxu8_finish(part, eng._plan("reconstruct", rows, 1, part.device))
 
     def aggregate_mxu8(self, sec8, seed):
         """One gen-4 step: ``sec8`` ``[P*k*L8, NBP]`` biased planar bytes
         (``engine.planar8_secrets``), randomness from the kernel's PRNG with
         a seed per shard; B1 per shard, then a B1 reconstruction. Returns
         ``[NBP, k, L]``."""
-        return self._full_finish(self.mxu8_partials([sec8], seed))
+        return self._mxu8_finish(self.mxu8_partials([sec8], seed))
 
     def aggregate_mxu8_streaming(self, chunks, seed0: int = 0, ext: bool = False,
                                  indices=None, subset_matrix=None):
@@ -314,21 +303,20 @@ class ShardedAggregationPipeline:
         part = self.mxu8_partials(chunks, seed0, ext)
         if indices is not None:
             return self.aggregate_mxu8_degraded(part, indices, subset_matrix)
-        return self._full_finish(part)
+        return self._mxu8_finish(part)
 
-    def aggregate_mxu8_degraded(self, part, indices, subset_matrix):
+    def aggregate_mxu8_degraded(self, part, indices, subset_matrix=None):
         """Finish from a degraded committee: reconstruct from the ``indices``
         clerks only (any ``reconstruction_threshold`` of ``share_count``)
-        with the scheme's subset Lagrange matrix
-        (``PackedShamirScheme.reconstruct_matrix(indices)``), through the
-        same B1 as the full finish; its plan is cached by ``indices``.
-        ``part`` is this rank's partial sums from :meth:`mxu8_partials`.
-        Returns ``[NBP, k2, L]``."""
-        key = tuple(int(i) for i in indices)
-        plan = self._subset_plans.get(key)
-        if plan is None:
-            eng = self.engine
-            s, L8 = len(key), eng._require_mxu8().L8
-            plan = mxu8_plan(eng.mxu8, subset_matrix, s * L8, 1, s, 0, device=part.device)
-            self._subset_plans[key] = plan
-        return self._mxu8_finish(part, plan, clerks=key)
+        with the scheme's subset Lagrange matrix, the engine's threshold
+        reconstruction (its subset plans, cached by ``indices``), through
+        the same launch as the full finish. ``subset_matrix``, when given
+        (the reference pipeline's argument,
+        ``PackedShamirScheme.reconstruct_matrix(indices)``), must equal the
+        matrix the engine builds from the scheme. ``part`` is this rank's
+        partial sums from :meth:`mxu8_partials`. Returns ``[NBP, k2, L]``."""
+        if subset_matrix is not None and not np.array_equal(
+                np.asarray(subset_matrix, dtype=object),
+                np.asarray(self.engine.spec.subset_matrix(indices), dtype=object)):
+            raise ValueError("subset_matrix is not the scheme's Lagrange matrix for indices")
+        return self._mxu8_finish(part, indices)

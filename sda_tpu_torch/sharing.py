@@ -42,7 +42,7 @@ from sda_tpu_torch.fields import PrimeField, trunc_add_mod, trunc_mod
 from sda_tpu_torch.ntt import intt_matrix, ntt_matrix
 from sda_tpu_torch.utils.errors import Invalid
 
-__all__ = ["AdditiveScheme", "PackedShamirScheme", "DeviceSchemeSpec"]
+__all__ = ["AdditiveScheme", "PackedShamirScheme", "DeviceSchemeSpec", "lagrange_matrix"]
 
 
 def _combine_fold(share_vectors, modulus: int) -> np.ndarray:
@@ -97,6 +97,10 @@ class DeviceSchemeSpec:
 
     - ``shares[B, n] = concat(secrets[B, k], randomness[B, r]) @ share_matrix``
     - ``secrets[B, k] = shares[B, n] @ reconstruct_matrix``  (all-shares path)
+
+    Packed Shamir also carries its two roots, so that the device can
+    reconstruct from any ``k + r`` of the ``n`` clerks
+    (:meth:`subset_matrix`); the additive scheme needs every share.
     """
 
     modulus: int
@@ -105,6 +109,90 @@ class DeviceSchemeSpec:
     randomness_count: int  # r: fresh uniform elements per batch row
     share_matrix: np.ndarray  # [k + r, n] object/int64 canonical
     reconstruct_matrix: np.ndarray  # [n, k]
+    omega_secrets: int | None = None  # packed Shamir: the secrets' root
+    omega_shares: int | None = None  # ... and the shares' root
+
+    def subset_matrix(self, indices) -> np.ndarray:
+        """``L[s, k]`` with ``secrets = shares[indices] @ L``: packed
+        Shamir's Lagrange matrix for the clerks ``indices``, any
+        ``k + r`` or more of them (:func:`lagrange_matrix`)."""
+        if self.omega_shares is None:
+            raise Invalid("the scheme reconstructs from every share only")
+        return lagrange_matrix(self.modulus, self.omega_secrets, self.omega_shares,
+                               self.secret_count, self.secret_count + self.randomness_count,
+                               indices)
+
+
+def _lagrange_basis(p: int, xs, ys) -> np.ndarray:
+    """``[len(xs), len(ys)]`` object ints: the Lagrange basis polynomial of
+    each point of ``xs`` evaluated at each of ``ys``, mod p."""
+    cols = []
+    for y in ys:
+        col = []
+        for i in range(len(xs)):
+            num, den = 1, 1
+            for j in range(len(xs)):
+                if i == j:
+                    continue
+                num = num * ((y - xs[j]) % p) % p
+                den = den * ((xs[i] - xs[j]) % p) % p
+            col.append(num * pow(den, -1, p) % p)
+        cols.append(col)
+    return np.array(cols, dtype=object).T
+
+
+def _prod_mod(a: np.ndarray, p: int) -> np.ndarray:
+    """Product mod p over the last axis of canonical int64 ``a`` (p < 2^31)."""
+    out = np.ones(a.shape[:-1], dtype=np.int64)
+    for j in range(a.shape[-1]):
+        out = out * a[..., j] % p
+    return out
+
+
+def _inv_mod(a: np.ndarray, p: int) -> np.ndarray:
+    """Elementwise inverse mod prime p of nonzero canonical int64 ``a`` (p <
+    2^31): ``a^(p-2)`` by square and multiply."""
+    out, base, e = np.ones_like(a), a % p, p - 2
+    while e:
+        if e & 1:
+            out = out * base % p
+        base = base * base % p
+        e >>= 1
+    return out
+
+
+def lagrange_matrix(modulus: int, omega_secrets: int, omega_shares: int, secret_count: int,
+                    threshold: int, indices) -> np.ndarray:
+    """Packed Shamir's Lagrange matrix ``L[s, k]`` for the clerks
+    ``indices`` (``secrets = shares[indices] @ L``), any ``threshold`` or
+    more of them: canonical, in vectorised int64 for a prime below 2^31
+    (every product of two residues below 2^62), object ints above.
+
+    Interpolation points ``x_0 = 1`` (the public zero) and ``x_i =
+    omega_shares**(index_i + 1)``; the basis at ``y_e = omega_secrets**e``
+    is ``prod_j (y_e - x_j) / ((y_e - x_i) prod_{j != i} (x_i - x_j))``,
+    the first factor shared by every point."""
+    indices = [int(i) for i in indices]
+    if len(set(indices)) != len(indices):
+        raise Invalid("duplicate share indices")
+    if len(indices) < threshold:
+        raise Invalid("Not enough shares to reconstruct")
+    p = int(modulus)
+    xs = np.array([1] + [pow(int(omega_shares), i + 1, p) for i in indices], dtype=object)
+    ys = np.array([pow(int(omega_secrets), e, p) for e in range(1, secret_count + 1)],
+                  dtype=object)
+    yx = (ys[None, :] - xs[:, None]) % p  # [s + 1, k]
+    if p >= (1 << 31) or not yx.all():
+        # wide fields, or a secret point among the shares' points
+        return PrimeField(p).asarray(_lagrange_basis(p, list(xs), list(ys))[1:, :])
+    xs, yx = xs.astype(np.int64), yx.astype(np.int64)
+    diff = (xs[:, None] - xs[None, :]) % p
+    np.fill_diagonal(diff, 1)
+    den = _prod_mod(diff, p)  # [s + 1]
+    num = _prod_mod(yx.T, p)  # [k]: prod over every point
+    lag = num[None, :] * _inv_mod(yx * den[:, None] % p, p) % p
+    # drop the row of the public point (value 0): rows 1.. map the shares
+    return lag[1:]
 
 
 # --------------------------------------------------------------------------
@@ -299,32 +387,11 @@ class PackedShamirScheme:
         ``x_i = omega_shares**(index_i + 1)`` plus the public point ``(1, 0)``
         (which contributes nothing to the matrix but does consume one
         interpolation degree of freedom — hence ``t + k`` shares suffice for a
-        degree ``t + k`` polynomial).
+        degree ``t + k`` polynomial). Built by :func:`lagrange_matrix`.
         """
-        indices = list(indices)
-        if len(set(indices)) != len(indices):
-            raise Invalid("duplicate share indices")
-        if len(indices) < self.reconstruction_threshold:
-            raise Invalid("Not enough shares to reconstruct")
-        p = self.prime_modulus
-        xs = [1] + [pow(int(self.omega_shares), i + 1, p) for i in indices]
-        ys_cols = []
-        for e in range(1, self.secret_count + 1):
-            y = pow(int(self.omega_secrets), e, p)
-            # Lagrange basis at evaluation point y for each interpolation point
-            col = []
-            for i in range(len(xs)):
-                num, den = 1, 1
-                for j in range(len(xs)):
-                    if i == j:
-                        continue
-                    num = num * ((y - xs[j]) % p) % p
-                    den = den * ((xs[i] - xs[j]) % p) % p
-                col.append(num * pow(den, -1, p) % p)
-            ys_cols.append(col)
-        # drop the row for the public point (value 0): rows 1.. map the shares
-        lag = np.array(ys_cols, dtype=self.field.dtype).T  # [len(xs), k]
-        return self.field.asarray(lag[1:, :])
+        return self.field.asarray(lagrange_matrix(
+            self.prime_modulus, self.omega_secrets, self.omega_shares, self.secret_count,
+            self.reconstruction_threshold, indices))
 
     # ----------------------------------------------------------- operations
 
@@ -397,4 +464,6 @@ class PackedShamirScheme:
             randomness_count=self.privacy_threshold,
             share_matrix=self.share_matrix[1:, :],
             reconstruct_matrix=self.full_reconstruct_matrix,
+            omega_secrets=int(self.omega_secrets),
+            omega_shares=int(self.omega_shares),
         )

@@ -130,7 +130,7 @@ class Config5Case:
         return self.pipe.mxu8_partials([self.planar] * self.chunks, self.chunks * s)
 
     def finish(self, acc):
-        return self.pipe._full_finish(acc)
+        return self.pipe._mxu8_finish(acc)
 
 
 def config5_case(mesh, participants_per_device: int, dim_per_device: int,

@@ -164,3 +164,50 @@ def test_a_kernel_library_is_spanned_only_when_it_loads(monkeypatch, tmp_path):
                                    for _ in range(3)])
     assert got == [("loaded", str(lib))] * 3
     assert [r[0] for r in ranges] == ["sda.kernel.load"]
+
+
+def test_a_threshold_reveal_records_its_subset_spans():
+    """A reveal from 7 of 8 clerks: its finish in
+    ``sda.engine.reconstruct.subset`` inside the reconstruction, the subset
+    plan's build in ``sda.sharing.lagrange`` inside that on a miss only, and
+    ``subset_reconstruct_launches`` counting each finish."""
+    from sda_tpu_torch import engine as engine_mod
+
+    eng = FederatedAggregation.packed_64bit(dimension=D, device="cpu").engine
+    sec8 = eng.planar8_secrets(eng.encode_secrets(
+        np.random.default_rng(7).integers(0, 1 << 62, size=(P, D))), LANES)
+
+    def reveal(clerks=None):
+        out = eng.aggregate_mxu8_kernel_streaming([sec8, sec8], P, seed0=3, lanes=LANES,
+                                                  clerks=clerks)
+        return eng.decode_output(out)
+
+    clerks = [0, 1, 2, 4, 5, 6, 7]
+    before = engine_mod.subset_reconstruct_launches
+    got, first = _traced(lambda: reveal(clerks))
+    again, second = _traced(lambda: reveal(clerks))
+    assert engine_mod.subset_reconstruct_launches == before + 2
+    assert np.array_equal(got, reveal()) and np.array_equal(got, again)
+    names = [r[0] for r in first]
+    assert names.count("sda.engine.reconstruct.subset") == names.count("sda.sharing.lagrange") == 1
+    for rng in first:
+        if rng[0] == "sda.engine.reconstruct.subset":
+            assert _parent(rng, first) == "sda.engine.reconstruct"
+        if rng[0] == "sda.sharing.lagrange":
+            assert _parent(rng, first) == "sda.engine.reconstruct.subset"
+    names = [r[0] for r in second]
+    assert "sda.sharing.lagrange" not in names and "sda.engine.reconstruct.subset" in names
+
+
+def test_the_launch_counters_name_the_wide_variant():
+    """``mxu8_wide_launches`` and ``subset_reconstruct_launches`` are module
+    integers named ``*_launches``, so the benchmark's ``routes:`` line
+    prints them; the plain version on the CPU launches nothing."""
+    from sda_tpu_torch import engine as engine_mod
+    from sda_tpu_torch.ops import mxu8 as m8
+
+    assert type(m8.mxu8_wide_launches) is int
+    assert type(engine_mod.subset_reconstruct_launches) is int
+    before = m8.mxu8_wide_launches
+    _round("host", streaming=True)
+    assert m8.mxu8_wide_launches == before
