@@ -76,6 +76,11 @@ Phases, each of which raises on failure:
    launch timed with CUDA events and the whole combine (the masker with
    every default: the card's device route) on the host clock, beside the
    launch's bound;
+   then the fused recombine at 16,384 seeds x 2^20 (one group) and 16,385
+   (two groups, the first seed of each marked rejected and its exact mask
+   traded), bit-equal to the host recombine the route had before and
+   exact on the windows, and the host tail and the unmask's subtract by
+   either route on the host clock (``fused recombine:``, two lines);
 10. chunk route: 256 seeds x 1,000,002 through ``combine_masks_device``
     (two B4 launches), exact on the same windows, timed;
 11. full-mask reveal: 64 masks x 1,000,002 through ``FullMasker(...)
@@ -1572,6 +1577,150 @@ def phase_chacha_reveal(mhz: float, iters: int = 5):
         "ops": ops, "bytes": nbytes, "shape": f"S={S} d={D} p=2^63-871",
         "expansions": {name: n - before[name] for name, n in chacha.expansions.items()},
     }
+
+
+def _host_recombine_combine(seed_words, dimension: int, modulus: int):
+    """The fused route with the host recombine it had before the recombine
+    moved to the card: each group's ``[d, 4]`` limbs copied to the host,
+    widened to int64, shifted and ORed, the groups folded with
+    ``trunc_add_mod``, then the rejected seeds' fix-up in python ints."""
+    import numpy as np
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch.fields import trunc_add_mod
+    from sda_tpu_torch.ops import chacha_kernel as ck
+
+    out, bad = None, []
+    for start in range(0, len(seed_words), ck._FOLD_SEED_CAP):
+        limbs, rej = ck.fold_masks_device(seed_words[start : start + ck._FOLD_SEED_CAP],
+                                          dimension, modulus, device=DEVICE)
+        bad.extend(start + int(i) for i in np.nonzero(rej)[0])
+        la = limbs.cpu().numpy().astype(np.int64)
+        part = la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
+        out = part if out is None else trunc_add_mod(out, part, modulus)
+    if bad:
+        seeds = [seed_words[i] for i in bad]
+        wrong = chacha.expand_masks_noskip(seeds, dimension, modulus)
+        exact = chacha.expand_masks(seeds, dimension, modulus)
+        o = np.array(out.tolist(), dtype=object)
+        for j in range(len(bad)):
+            o = (o - np.array(wrong[j].tolist(), dtype=object)
+                 + np.array(exact[j].tolist(), dtype=object)) % modulus
+        out = o.astype(np.int64)
+    return out, bad
+
+
+def phase_fused_recombine(iters: int = 5, dimension: int = 1 << 20):
+    """The fused combine's host tail at a federated round's size (2^20
+    dimensions): 16,384 seeds (one B5 group) and 16,385 (two groups, the
+    host fold), the second with the first seed of each group marked
+    rejected and its exact mask traded for another, each bit-equal to
+    :func:`_host_recombine_combine` and exact on the windows; then, on the
+    host clock, the combine and the tail alone by either recombine, and
+    the unmask's subtract by either route of ``trunc_sub_mod``."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from sda_tpu_torch import chacha
+    from sda_tpu_torch import fields
+    from sda_tpu_torch.fields import find_special_prime_field, trunc_add_mod
+    from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.ops.limbs import LimbContext
+
+    D, S = dimension, ck._FOLD_SEED_CAP
+    p = find_special_prime_field(63, 8, 9)[0]
+    rng = np.random.default_rng(75)
+    seeds = [chacha.new_seed(128, rng) for _ in range(S + 1)]
+    dims = _windows(D)
+
+    ck.fold_recombine_device_launches = 0
+    _reset_counts()
+    one, bad = ck.combine_masks_device(seeds[:S], D, p, device=DEVICE)
+    counts = {**_chacha_counts(), "fold_recombine_device": ck.fold_recombine_device_launches}
+    if counts != {"chacha_keystream": 0, "chacha_fold": 1, "fold_recombine_device": 1}:
+        raise AssertionError(f"16,384 seeds launched {counts}")
+    want, want_bad = _host_recombine_combine(seeds[:S], D, p)
+    if one.dtype != np.int64 or bad != want_bad or not np.array_equal(one, want):
+        raise AssertionError("16,384 seeds: the card's recombine != the host recombine")
+    if one[dims].tolist() != _window_oracle(seeds[:S], D, p, bad, dims).tolist():
+        raise AssertionError("16,384 seeds: the combine != the numpy oracle on its windows")
+
+    real_fold, real_expand = ck.fold_masks_device, chacha.expand_masks
+
+    def marked(seed_words, dimension, modulus, device=None):
+        limbs, rej = real_fold(seed_words, dimension, modulus, device=device)
+        rej = rej.copy()
+        rej[0] += 1
+        return limbs, rej
+
+    def traded(seed_words, dimension, modulus):
+        return np.stack([(np.asarray(r, dtype=np.int64) + 1) % modulus
+                         for r in real_expand(seed_words, dimension, modulus)])
+
+    with mock.patch.object(ck, "fold_masks_device", marked), \
+            mock.patch.object(chacha, "expand_masks", traded):
+        ck.fold_recombine_device_launches = 0
+        _reset_counts()
+        two, bad2 = ck.combine_masks_device(seeds, D, p, device=DEVICE)
+        counts2 = {**_chacha_counts(), "fold_recombine_device": ck.fold_recombine_device_launches}
+        unfixed, _ = ck.combine_masks_device(seeds, D, p, fixup_host=False, device=DEVICE)
+        want2, want_bad2 = _host_recombine_combine(seeds, D, p)
+        oracle2 = _window_oracle(seeds, D, p, bad2, dims)
+    if counts2 != {"chacha_keystream": 0, "chacha_fold": 2, "fold_recombine_device": 2}:
+        raise AssertionError(f"16,385 seeds launched {counts2}")
+    if bad2 != [0, S] or want_bad2 != [0, S]:
+        raise AssertionError(f"16,385 seeds: rejected {bad2}, not [0, {S}]")
+    two = np.asarray(two, dtype=np.int64)
+    if not np.array_equal(two, want2) or two[dims].tolist() != oracle2.tolist():
+        raise AssertionError("16,385 seeds: the card's recombine and fold != the host's")
+    if np.array_equal(two, np.asarray(unfixed, dtype=np.int64)):
+        raise AssertionError("16,385 seeds: the fix-up traded no mask")
+
+    def host_ms(fn):
+        fn()
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)
+
+    ctx = LimbContext.create(p)
+    limbs, _ = ck.fold_masks_device(seeds[:S], D, p, device=DEVICE)
+
+    def host_tail():
+        la = limbs.cpu().numpy().astype(np.int64)
+        return la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
+
+    masked = np.random.default_rng(76).integers(0, p, size=D, dtype=np.int64)
+    return {
+        "counts": counts, "counts2": counts2, "bad2": bad2, "checked": len(dims),
+        "combine_ms": host_ms(lambda: ck.combine_masks_device(seeds[:S], D, p, device=DEVICE)),
+        "host_combine_ms": host_ms(lambda: _host_recombine_combine(seeds[:S], D, p)),
+        "tail_ms": host_ms(lambda: ctx.recombine_i64(limbs).cpu().numpy()),
+        "host_tail_ms": host_ms(host_tail),
+        "sub_ms": host_ms(lambda: fields.trunc_sub_mod(masked, one, p)),
+        "split_ms": host_ms(lambda: trunc_add_mod(masked, -one, p)),
+        "shape": f"S={S} d={D} p=2^63-871",
+    }
+
+
+def _fused_recombine_lines(fr: dict, card: str) -> list[str]:
+    med = {k: v[len(v) // 2] for k, v in fr.items() if k.endswith("_ms")}
+    return [
+        f"fused recombine: {fr['shape']}: {fr['counts']}, bit-equal to the host recombine; "
+        f"16,385 seeds: {fr['counts2']}, seeds {fr['bad2']} marked rejected and their masks "
+        f"traded, bit-equal to the host recombine, fold and fix-up; {fr['checked']} dimensions "
+        f"a case exact against the numpy oracle",
+        f"fused recombine: on {card}, host clock, median of {len(fr['combine_ms'])}: combine "
+        f"{med['combine_ms']:.4f} ms (with the host recombine {med['host_combine_ms']:.4f}); "
+        f"the tail alone {med['tail_ms']:.4f} ms (card recombine + the int64 copy) against "
+        f"{med['host_tail_ms']:.4f} (the limbs' copy + host widen); unmask's trunc_sub_mod one pass "
+        f"{med['sub_ms']:.4f} ms against the sign split {med['split_ms']:.4f}",
+    ]
 
 
 def phase_chunk_route(mhz: float, iters: int = 10):
@@ -3793,6 +3942,10 @@ def main() -> int:
           f"{CHACHA['seeds'] / (hm[1] / 1e3):.0f} seeds/s; bad seeds {cr['bad']}; dimensions "
           f"[0, {CHACHA['window']}), the last {CHACHA['tail']} and {cr['checked']} in all exact",
           flush=True)
+
+    fr = phase_fused_recombine()
+    for line in _fused_recombine_lines(fr, card):
+        print(line, flush=True)
 
     ch = phase_chunk_route(mhz)
     tc = ch["timing"]

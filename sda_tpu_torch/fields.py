@@ -89,10 +89,27 @@ def trunc_add_mod(a, b, m: int) -> np.ndarray:
     )
 
 
+# Calls of trunc_sub_mod that took its one-pass route (both operands canonical).
+trunc_sub_canonical_launches = 0
+
+
 def trunc_sub_mod(a, b, m: int) -> np.ndarray:
     """Exact ``trunc_mod(a - b, m)`` without int64 overflow (see
-    :func:`trunc_add_mod`; precondition ``|a|, |b| < m < 2**63``)."""
-    return trunc_add_mod(a, -np.asarray(b, dtype=np.int64), m)
+    :func:`trunc_add_mod`; precondition ``|a|, |b| < m < 2**63``).
+
+    When the arrays show both operands canonical, in ``[0, m)``, ``a - b``
+    lies in ``(-m, m)`` and is already the truncated remainder: one pass.
+    Anything else, empty arrays included, takes :func:`trunc_add_mod`'s sign
+    split; both routes give the same values.
+    """
+    global trunc_sub_canonical_launches
+    a = np.asarray(a, dtype=np.int64)
+    b = np.asarray(b, dtype=np.int64)
+    if (a.size and b.size and int(a.min()) >= 0 and int(b.min()) >= 0
+            and int(a.max()) < m and int(b.max()) < m):
+        trunc_sub_canonical_launches += 1
+        return a - b
+    return trunc_add_mod(a, -b, m)
 
 
 def positive(values, modulus):

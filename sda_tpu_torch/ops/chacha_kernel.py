@@ -63,6 +63,9 @@ _CHUNK_BUDGET_BYTES = 2 * 10**9
 # Launches of each kernel (one per call on a CUDA device).
 chacha_keystream_launches = 0
 chacha_fold_launches = 0
+# Groups of the fused route whose limbs were recombined to int64 on the
+# device, before the one copy to the host.
+fold_recombine_device_launches = 0
 
 # The kernels' build of csrc/chacha.cu: name -> (source, defines).
 KERNEL_VARIANTS = {"chacha": ("chacha.cu", ())}
@@ -399,8 +402,9 @@ def combine_masks_device(seed_words, dimension: int, modulus: int, fixup_host: b
 
     - **fused** (B5): on a CUDA device, with ``S >= 512``, a
       pseudo-Mersenne modulus with ``e <= 63``, and no ``seed_chunk``
-      given. Groups of 16384 seeds, one launch each, folded
-      on the host with ``trunc_add_mod``; the result is numpy int64.
+      given. Groups of 16384 seeds, one launch each, each group's limbs
+      recombined to int64 on the device and folded on the host with
+      ``trunc_add_mod``; the result is numpy int64.
     - **chunk** (B4 + ``_genrange_reduce`` + ``sum_mod``): everything
       else. Seeds stream through the device in ``seed_chunk``-sized blocks
       sized so the ``[chunk, d, L]`` mask block stays ~2 GB (10k seeds x
@@ -430,22 +434,28 @@ def combine_masks_device(seed_words, dimension: int, modulus: int, fixup_host: b
 
 
 def _combine_fused(seed_words, dimension: int, modulus: int, fixup_host: bool, dev):
+    global fold_recombine_device_launches
     from sda_tpu_torch import chacha
     from sda_tpu_torch.fields import trunc_add_mod
 
+    ctx = LimbContext.create(modulus)
     out = None
     bad: list[int] = []
     for start in range(0, len(seed_words), _FOLD_SEED_CAP):
         limbs, rej = fold_masks_device(seed_words[start : start + _FOLD_SEED_CAP], dimension,
                                        modulus, device=dev)
         bad.extend(start + int(i) for i in np.nonzero(rej)[0])
-        with span("sda.chacha.wait"):
-            la = limbs.cpu().numpy()
         with span("sda.chacha.recombine"):
-            # canonical < 2^63 on this route: vectorised int64 limb recombine
-            la = la.astype(np.int64)
-            part = la[:, 0] | (la[:, 1] << 16) | (la[:, 2] << 32) | (la[:, 3] << 48)
-            out = part if out is None else trunc_add_mod(out, part, modulus)
+            # canonical < 2^63 on this route: the int64 values are made where
+            # the limbs are, so half the bytes cross to the host
+            values = ctx.recombine_i64(limbs)
+            fold_recombine_device_launches += 1
+        with span("sda.chacha.wait"):
+            part = values.cpu().numpy()
+        if out is not None:
+            with span("sda.chacha.recombine"):
+                part = trunc_add_mod(out, part, modulus)
+        out = part
     if bad and fixup_host:
         with span("sda.chacha.fixup"):
             seeds = [seed_words[i] for i in bad]

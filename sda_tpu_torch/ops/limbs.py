@@ -304,12 +304,17 @@ class LimbContext:
         arr = torch.as_tensor(np.asarray(values, dtype=np.int64), device=device) % self.p
         return torch.stack([(arr >> (_W * j)) & _MASK for j in range(self.L)], dim=-1)
 
-    def decode_i64(self, limb_tensor) -> np.ndarray:
-        """Vectorised limbs -> int64 numpy array (p < 2**63)."""
+    def recombine_i64(self, limb_tensor) -> torch.Tensor:
+        """Canonical limbs -> int64 tensor of their values, on the limbs'
+        own device (p < 2**63); nothing waits for the device."""
         if self.p >= (1 << 63):
-            raise ValueError("decode_i64 requires a modulus below 2**63")
+            raise ValueError("the int64 recombine requires a modulus below 2**63")
         arr = torch.as_tensor(limb_tensor).to(torch.int64)
         out = torch.zeros(arr.shape[:-1], dtype=torch.int64, device=arr.device)
         for j in reversed(range(self.L)):
             out = (out << _W) | arr[..., j]
-        return out.cpu().numpy()
+        return out
+
+    def decode_i64(self, limb_tensor) -> np.ndarray:
+        """Vectorised limbs -> int64 numpy array (p < 2**63)."""
+        return self.recombine_i64(limb_tensor).cpu().numpy()

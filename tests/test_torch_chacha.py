@@ -208,6 +208,25 @@ def test_fold_matches_host_oracle(modulus, d):
     assert rej.tolist() == [0] * 1100
 
 
+@pytest.mark.parametrize("modulus,d", [(P63, 264), (P55, 261)], ids=["e63", "e55_ragged"])
+def test_recombine_of_the_fold_limbs_equals_the_host_widen(modulus, d):
+    """The fused route's recombine (``recombine_i64``, on the limbs' own
+    device) against the host widen-shift-or it replaced, on B5's plain
+    limbs; ``decode_i64`` on the same limbs still gives the reference's."""
+    ctx = LimbContext.create(modulus)
+    limbs, _ = ck.fold_masks_device(_seeds(600, seed=15), d, modulus, device="cpu")
+    limbs = torch.cat([limbs, ctx.encode_i64([0, 1, modulus - 1]).to(torch.int32)])
+    got = ctx.recombine_i64(limbs)
+    assert got.dtype == torch.int64 and got.device == limbs.device
+    assert tuple(got.shape) == (d + 3,)
+    widened = _value(limbs.numpy())
+    assert got.tolist() == widened and widened[-3:] == [0, 1, modulus - 1]
+    decoded = ctx.decode_i64(limbs)
+    assert decoded.dtype == np.int64
+    assert decoded.tolist() == widened == RefLimbContext.create(modulus).decode_i64(
+        limbs.numpy()).tolist()
+
+
 @pytest.mark.parametrize("e", [49, 55, 61, 63])
 def test_fold_finalize_at_the_extremes(e):
     p = find_special_prime_field(e, 8, 9)[0]
@@ -318,10 +337,12 @@ def test_fused_dispatch_on_a_cuda_device_groups_by_16384():
     version here)."""
     seeds = _seeds(16_500, seed=12)
     calls = []
+    before = ck.fold_recombine_device_launches
     with mock.patch.object(ck, "resolve_device", _cuda_by_default), \
             mock.patch.object(ck, "fold_masks_device", _fold_on_cpu(calls)):
         out, bad = ck.combine_masks_device(seeds, 8, P63)
     assert calls == [16384, 116]
+    assert ck.fold_recombine_device_launches - before == 2
     assert out.dtype == np.int64 and bad == []
     assert out.tolist() == _host_fold(seeds, 8, P63)
 

@@ -15,8 +15,9 @@ import torch
 from sda_tpu import masking as ref_masking
 from sda_tpu.engine import device_combine as ref_device_combine
 from sda_tpu.fields import find_special_prime_field
+from sda_tpu.fields import trunc_add_mod as ref_trunc_add_mod
 from sda_tpu.fields import trunc_sub_mod as ref_trunc_sub_mod
-from sda_tpu_torch import chacha, engine, routing
+from sda_tpu_torch import chacha, engine, fields, routing
 from sda_tpu_torch.engine import device_combine
 from sda_tpu_torch.fields import positive, trunc_add_mod, trunc_sub_mod
 from sda_tpu_torch.masking import ChaChaMasker, FullMasker, NoneMasker
@@ -339,6 +340,45 @@ def test_trunc_sub_mod_matches_reference():
     assert got.tolist() == ref_trunc_sub_mod(a, b, m).tolist()
     assert [int(x) for x in got] == [
         (abs(int(x) - int(y)) % m) * (1 if int(x) >= int(y) else -1) for x, y in zip(a, b)]
+
+
+def _operands(case, m):
+    rng = np.random.default_rng(23)
+    edges = np.array([0, 1, m - 1], dtype=np.int64)
+    canon = np.concatenate([np.repeat(edges, 3), rng.integers(0, m, size=55, dtype=np.int64)])
+    other = np.concatenate([np.tile(edges, 3), rng.integers(0, m, size=55, dtype=np.int64)])
+    neg = -rng.integers(1, m, size=canon.size, dtype=np.int64)
+    return {
+        "canonical": (canon, other),
+        "canonical_scalar_b": (canon, np.int64(m - 1)),
+        "a_negative": (neg, other),
+        "b_negative": (canon, neg),
+        "both_negative": (neg, np.roll(neg, 5)),
+        "empty": (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)),
+    }[case]
+
+
+@pytest.mark.parametrize("case,one_pass", [
+    ("canonical", True), ("canonical_scalar_b", True), ("a_negative", False),
+    ("b_negative", False), ("both_negative", False), ("empty", False),
+])
+def test_trunc_sub_mod_one_pass_on_canonical_operands(case, one_pass):
+    """Operands both in [0, m), as the unmask's are, take the one-pass
+    subtract and count it; any other operands take the sign split. Either
+    way the values are the general path's and the reference's, and
+    trunc_add_mod's are unchanged."""
+    m = P63
+    a, b = _operands(case, m)
+    before = fields.trunc_sub_canonical_launches
+    got = trunc_sub_mod(a, b, m)
+    assert fields.trunc_sub_canonical_launches - before == int(one_pass)
+    general = trunc_add_mod(a, -np.asarray(b, dtype=np.int64), m)
+    assert got.dtype == np.int64 and got.shape == general.shape
+    assert got.tolist() == general.tolist() == ref_trunc_sub_mod(a, b, m).tolist()
+    want = [(abs(x - y) % m) * (1 if x >= y else -1)
+            for x, y in zip(a.tolist(), np.broadcast_to(b, a.shape).tolist())]
+    assert got.tolist() == want
+    assert trunc_add_mod(a, b, m).tolist() == ref_trunc_add_mod(a, b, m).tolist()
 
 
 def test_chacha_unmask_takes_int64_as_it_is(monkeypatch):
