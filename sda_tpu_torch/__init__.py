@@ -7,6 +7,8 @@ modules it keeps as its own copies.
 
 Layer map (bottom-up):
 
+- :mod:`sda_tpu_torch.utils`    error types, the device rule
+  (``utils.device.resolve_device``), spans, timing and profiling, varints
 - :mod:`sda_tpu_torch.fields`   prime-field arithmetic (host numpy)
 - :mod:`sda_tpu_torch.ntt`      number-theoretic transforms and their matrices
 - :mod:`sda_tpu_torch.sharing`  additive & packed-Shamir schemes and their

@@ -76,13 +76,13 @@ from sda_tpu_torch.ops.pallas_kernels import (
     planar_from_batched,
 )
 from sda_tpu_torch.sharing import DeviceSchemeSpec
+from sda_tpu_torch.utils.device import resolve_device
 from sda_tpu_torch.utils.logging import span
 
 __all__ = [
     "TorchAggregationEngine",
     "device_combine",
     "limbs_from_numpy",
-    "resolve_device",
     "spec_from_numpy",
 ]
 
@@ -93,17 +93,6 @@ decode_i64_launches = 0
 subset_reconstruct_launches = 0
 # subset plans an engine keeps, the least recently used dropped first
 SUBSET_PLANS = 8
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. A CUDA device without a card raises: nothing
-    drops to the CPU on its own."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def _add_mod_i64(a: torch.Tensor, b: torch.Tensor, modulus: int) -> torch.Tensor:

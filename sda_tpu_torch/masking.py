@@ -60,8 +60,8 @@ def _policy(routing, device_bulk_threshold, device):
     the device route when ``device`` is the card (the default; it raises
     when there is none) > None, the host fold, when the caller asked for
     the CPU (reference parity, no probe overhead)."""
-    from sda_tpu_torch.engine import resolve_device
     from sda_tpu_torch.routing import RoutingPolicy, default_policy
+    from sda_tpu_torch.utils.device import resolve_device
 
     if routing is not None:
         return routing
@@ -196,25 +196,25 @@ class ChaChaMasker:
     def combine(self, seeds_as_i64):
         with span("sda.masking.combine"):
             with span("sda.chacha.keys"):
-                seeds = [np.asarray(s, dtype=np.int64) for s in seeds_as_i64]
-                # re-expand every participant's seed and fold; i64 words -> u32
-                word_lists = [(s & 0xFFFFFFFF).tolist() for s in seeds]
-            if not seeds:
+                # re-expand every participant's seed and fold; the i64 words'
+                # u32 values, one [S, w] array for either route
+                try:
+                    words = np.asarray(seeds_as_i64, dtype=np.int64) & 0xFFFFFFFF
+                except ValueError:
+                    raise Invalid("seed length mismatch") from None
+            if len(words) == 0:
                 return np.zeros(self.dimension, dtype=np.int64)
             policy = _policy(self.routing, self.device_bulk_threshold, self.device)
             if (
                 policy is not None
                 and self.modulus % 2 == 1
-                and policy.chacha_combine(len(seeds), self.dimension) == "device"
+                and policy.chacha_combine(len(words), self.dimension) == "device"
             ):
                 from sda_tpu_torch.ops.chacha_kernel import combine_masks_device
 
-                combined, _bad = combine_masks_device(
-                    word_lists, self.dimension, self.modulus, device=self.device
-                )
-                # int64 already on the fused route, object ints on the chunk route
-                return np.asarray(combined, dtype=np.int64)
-            masks = chacha.expand_masks(word_lists, self.dimension, self.modulus)
+                return combine_masks_device(words, self.dimension, self.modulus,
+                                            device=self.device)[0]
+            masks = chacha.expand_masks(words, self.dimension, self.modulus)
             with span("sda.chacha.recombine"):
                 acc = np.zeros(self.dimension, dtype=np.int64)
                 for row in masks:

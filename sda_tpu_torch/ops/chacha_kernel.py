@@ -39,8 +39,10 @@ import ctypes
 import numpy as np
 import torch
 
-from sda_tpu_torch.engine import resolve_device
+from sda_tpu_torch import chacha
+from sda_tpu_torch.fields import trunc_add_mod
 from sda_tpu_torch.ops.limbs import LimbContext
+from sda_tpu_torch.utils.device import resolve_device
 from sda_tpu_torch.utils.logging import span
 
 __all__ = [
@@ -82,13 +84,12 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _key_words(seed_words) -> np.ndarray:
-    """Seeds (u32 word lists, or the rows of an ``[S, n]`` array) ->
-    ``[S, 8]`` uint32 keys: each seed's first 8 words, zero-padded (rand
-    0.3's key)."""
-    keys = np.zeros((len(seed_words), 8), dtype=np.uint32)
-    for i, w in enumerate(seed_words):
-        w = [int(v) & _M32 for v in list(w)[:8]]
-        keys[i, : len(w)] = w
+    """Seeds (an ``[S, w]`` array, or S rows of w words) -> ``[S, 8]``
+    uint32 keys: each seed's first 8 words as u32, zero-padded (rand 0.3's
+    key)."""
+    words = np.asarray(seed_words, dtype=np.int64)[..., :8] & _M32
+    keys = np.zeros((len(words), 8), dtype=np.uint32)
+    keys[:, : words.shape[-1]] = words
     return keys
 
 
@@ -385,32 +386,38 @@ def fold_masks_device(seed_words, dimension: int, modulus: int, device=None):
 # ---------------------------------------------------------------- combine
 
 
-def _decode(ctx: LimbContext, limbs: torch.Tensor) -> np.ndarray:
-    """Canonical limbs -> object array of python ints (vectorised below
-    2^63)."""
-    if ctx.p < (1 << 63):
-        return ctx.decode_i64(limbs).astype(object)
-    return ctx.decode(limbs)
+def _fix_up(out: np.ndarray, wrong_rows, exact_rows, modulus: int) -> np.ndarray:
+    """``out`` with each rejected seed's no-skip row (``wrong_rows``, what the
+    device folded) traded for its exact host row (``exact_rows``), mod
+    ``modulus``. The arithmetic is in python ints, because the intermediate
+    sums cross 2^63; the result is int64 below a modulus of 2^63, object ints
+    above."""
+    o = out.astype(object)
+    for wrong, exact in zip(wrong_rows, exact_rows):
+        o = (o - wrong.astype(object) + exact.astype(object)) % modulus
+    return o.astype(np.int64) if modulus < (1 << 63) else o
 
 
 def combine_masks_device(seed_words, dimension: int, modulus: int, fixup_host: bool = True,
                          seed_chunk: int | None = None, device=None):
     """Recipient-side combine: fold all participants' masks mod m.
 
-    Returns (combined mask ``[d]``, list of seed indices whose streams hit
-    a gen_range rejection). Two routes:
+    ``seed_words``: an ``[S, w]`` array of the seeds' u32 words, or S rows of
+    w words. Returns (combined mask ``[d]``, list of seed indices whose
+    streams hit a gen_range rejection). On every route the mask is numpy
+    int64 below a modulus of 2^63 and object ints above, as
+    ``decode_output``'s values. Two routes:
 
     - **fused** (B5): on a CUDA device, with ``S >= 512``, a
       pseudo-Mersenne modulus with ``e <= 63``, and no ``seed_chunk``
       given. Groups of 16384 seeds, one launch each, each group's limbs
       recombined to int64 on the device and folded on the host with
-      ``trunc_add_mod``; the result is numpy int64.
+      ``trunc_add_mod``.
     - **chunk** (B4 + ``_genrange_reduce`` + ``sum_mod``): everything
       else. Seeds stream through the device in ``seed_chunk``-sized blocks
       sized so the ``[chunk, d, L]`` mask block stays ~2 GB (10k seeds x
-      1M dimensions is 80+ GB of masks that must never exist at once); the
-      result is an object array of python ints. The reference's ``rows``
-      (its kernel's seed tile) has no counterpart here.
+      1M dimensions is 80+ GB of masks that must never exist at once). The
+      reference's ``rows`` (its kernel's seed tile) has no counterpart here.
 
     With ``fixup_host`` (default) the combined mask is ALREADY exact: the
     device's no-skip masks of the affected seeds are subtracted and their
@@ -423,22 +430,19 @@ def combine_masks_device(seed_words, dimension: int, modulus: int, fixup_host: b
     ctx = LimbContext.create(modulus)
     S = len(seed_words)
     if S == 0:
-        return np.zeros(dimension, dtype=object), []
+        return np.zeros(dimension, dtype=np.int64 if modulus < (1 << 63) else object), []
     e = modulus.bit_length()
     cp = (1 << e) - modulus
     if (seed_chunk is None and S >= 512
             and e <= 63 and cp < (1 << 14) and modulus % 2 == 1
             and ctx.L == 4 and dev.type == "cuda"):
-        return _combine_fused(seed_words, dimension, modulus, fixup_host, dev)
+        return _combine_fused(ctx, seed_words, dimension, fixup_host, dev)
     return _combine_chunked(ctx, seed_words, dimension, fixup_host, seed_chunk, dev)
 
 
-def _combine_fused(seed_words, dimension: int, modulus: int, fixup_host: bool, dev):
+def _combine_fused(ctx: LimbContext, seed_words, dimension: int, fixup_host: bool, dev):
     global fold_recombine_device_launches
-    from sda_tpu_torch import chacha
-    from sda_tpu_torch.fields import trunc_add_mod
-
-    ctx = LimbContext.create(modulus)
+    modulus = ctx.p
     out = None
     bad: list[int] = []
     for start in range(0, len(seed_words), _FOLD_SEED_CAP):
@@ -459,22 +463,13 @@ def _combine_fused(seed_words, dimension: int, modulus: int, fixup_host: bool, d
     if bad and fixup_host:
         with span("sda.chacha.fixup"):
             seeds = [seed_words[i] for i in bad]
-            wrong = chacha.expand_masks_noskip(seeds, dimension, modulus)
-            exact = chacha.expand_masks(seeds, dimension, modulus)
-            # python-int object arithmetic: the intermediate sums cross 2^63,
-            # so int64 element types would silently wrap
-            o = np.array(out.tolist(), dtype=object)
-            for j in range(len(bad)):
-                o = (o - np.array(wrong[j].tolist(), dtype=object)
-                     + np.array(exact[j].tolist(), dtype=object)) % modulus
-            return o, bad
+            out = _fix_up(out, chacha.expand_masks_noskip(seeds, dimension, modulus),
+                          chacha.expand_masks(seeds, dimension, modulus), modulus)
     return out, bad
 
 
 def _combine_chunked(ctx: LimbContext, seed_words, dimension: int, fixup_host: bool,
                      seed_chunk: int | None, dev):
-    from sda_tpu_torch import chacha
-
     S = len(seed_words)
     if seed_chunk is None:
         seed_chunk = max(128, _CHUNK_BUDGET_BYTES // max(1, dimension * 4 * ctx.L))
@@ -494,12 +489,11 @@ def _combine_chunked(ctx: LimbContext, seed_words, dimension: int, fixup_host: b
             if fixup_host:
                 wrong_rows.append(masks[i].cpu())
         del masks
+    decode = ctx.decode_i64 if ctx.p < (1 << 63) else ctx.decode
     with span("sda.chacha.recombine"):
-        out = _decode(ctx, acc)
+        out = decode(acc)
     if bad and fixup_host:
         with span("sda.chacha.fixup"):
             exact = chacha.expand_masks([seed_words[i] for i in bad], dimension, ctx.p)
-            for j in range(len(bad)):
-                wrong = _decode(ctx, wrong_rows[j])
-                out = (out - wrong + np.asarray(exact[j], dtype=object)) % ctx.p
+            out = _fix_up(out, [decode(row) for row in wrong_rows], exact, ctx.p)
     return out, bad

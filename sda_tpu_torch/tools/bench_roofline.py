@@ -38,7 +38,6 @@ import sys
 
 import torch
 
-from sda_tpu_torch.engine import resolve_device
 from sda_tpu_torch.models import FederatedAggregation
 from sda_tpu_torch.tools._common import (
     card_fields,
@@ -49,6 +48,7 @@ from sda_tpu_torch.tools._common import (
     reveal_check_slice,
     write_artifact,
 )
+from sda_tpu_torch.utils.device import resolve_device
 from sda_tpu_torch.utils.profiling import (
     card_line,
     cuda_time,

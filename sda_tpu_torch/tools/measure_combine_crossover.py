@@ -33,8 +33,8 @@ import time
 
 import numpy as np
 
-from sda_tpu_torch.engine import resolve_device
 from sda_tpu_torch.tools._common import card_fields, write_artifact
+from sda_tpu_torch.utils.device import resolve_device
 
 __all__ = ["measure", "main", "SHAPES"]
 

@@ -32,7 +32,6 @@ import sys
 
 import torch
 
-from sda_tpu_torch.engine import resolve_device
 from sda_tpu_torch.models import FederatedAggregation
 from sda_tpu_torch.ops.mxu8 import launch_splits, mxu8_plan, run_mxu8
 from sda_tpu_torch.ops.probes import library_probe, probe_bytes, probe_t3
@@ -47,6 +46,7 @@ from sda_tpu_torch.tools._common import (
     timed,
     write_artifact,
 )
+from sda_tpu_torch.utils.device import resolve_device
 from sda_tpu_torch.utils.profiling import PEAK_BYTES
 
 __all__ = ["measure", "main", "REFERENCE_VARIANTS", "SAMPLES", "ITERS"]

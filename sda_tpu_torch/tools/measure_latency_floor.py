@@ -27,7 +27,6 @@ import sys
 
 import torch
 
-from sda_tpu_torch.engine import resolve_device
 from sda_tpu_torch.models import FederatedAggregation
 from sda_tpu_torch.ops.probes import library_probe, probe_bytes, probe_t1, probe_t1_bare
 from sda_tpu_torch.tools._common import (
@@ -42,6 +41,7 @@ from sda_tpu_torch.tools._common import (
     timed,
     write_artifact,
 )
+from sda_tpu_torch.utils.device import resolve_device
 from sda_tpu_torch.utils.profiling import PEAK_BYTES
 
 __all__ = ["measure", "main", "SAMPLES", "ITERS", "BATCH_ITERS"]

@@ -8,6 +8,7 @@ only at the smallest sizes (3 seeds x 4 blocks, 5 seeds x 40 dimensions,
 reference's host oracle (``sda_tpu.chacha``, ``sda_tpu.fields``).
 """
 
+from contextlib import ExitStack
 from unittest import mock
 
 import numpy as np
@@ -135,12 +136,24 @@ def test_keystream_matches_reference_kernel():
     assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
-def test_keystream_rfc_vector_and_ragged_counters():
+@pytest.mark.parametrize("form", ["list", "int64_array"])
+def test_keystream_rfc_vector_and_ragged_counters(form):
+    """The seeds as u32 word lists, or as the ``[S, 4]`` int64 array the
+    masker hands on (words of 2^31 and above kept as u32 values, or as their
+    negative i64 twins): the same keys, the same stream."""
     got = ck.chacha_keystream(np.zeros((1, 8), np.uint32), 1, device="cpu")
     assert (got[0, 0, :4].to(torch.int64) & 0xFFFFFFFF).tolist() == [
         0xADE0B876, 0x903DF1A0, 0xE56A5D40, 0x28BD8653]
     seeds = _seeds(3, seed=2)
-    got = ck.chacha_keystream(seeds, 37, device="cpu").numpy().view(np.uint32)
+    given = seeds
+    if form == "int64_array":
+        given = np.array(seeds, dtype=np.int64)
+        assert given.shape == (3, 4) and (given >= 1 << 31).any()
+        keys = ck._key_words(seeds)
+        assert np.array_equal(ck._key_words(given), keys)
+        assert np.array_equal(ck._key_words(np.where(given >= 1 << 31, given - (1 << 32), given)),
+                              keys)
+    got = ck.chacha_keystream(given, 37, device="cpu").numpy().view(np.uint32)
     for s, words in enumerate(seeds):
         rng = ref_chacha.ChaChaRng(words)
         assert got[s].reshape(-1).tolist() == [rng.next_u32() for _ in range(37 * 16)]
@@ -285,7 +298,7 @@ def test_combine_matches_reference():
     got, bad = ck.combine_masks_device(seeds, 64, 433, device="cpu")
     assert bad == want_bad == []
     assert [int(x) for x in got] == [int(x) for x in want] == _host_fold(seeds, 64, 433)
-    assert got.dtype == object
+    assert got.dtype == np.int64
 
 
 def test_combine_seed_chunk_streaming_matches_one_pass():
@@ -347,6 +360,11 @@ def test_fused_dispatch_on_a_cuda_device_groups_by_16384():
     assert out.tolist() == _host_fold(seeds, 8, P63)
 
 
+def _traded(rows, modulus):
+    """Other canonical masks in place of ``rows``: ``3 v + 7 mod p``."""
+    return np.array([[(int(v) * 3 + 7) % modulus for v in row] for row in rows], dtype=object)
+
+
 def test_fused_route_fixup_is_exact():
     """The fused route's per-bad-seed host fix-up: the fold reports zone
     hits for three seeds (a pseudo-Mersenne p never hits at this size), and
@@ -361,17 +379,14 @@ def test_fused_route_fixup_is_exact():
         rej[bad_seeds] = [1, 2, 1]
         return limbs, rej
 
-    def swapped(rows):
-        return np.array([[(int(v) * 3 + 7) % P63 for v in row] for row in rows], dtype=object)
-
     with mock.patch.object(ck, "resolve_device", _cuda_by_default), \
             mock.patch.object(ck, "fold_masks_device", fold), \
             mock.patch.object(chacha, "expand_masks",
-                              lambda s, dim, m: swapped(real_expand(s, dim, m))):
+                              lambda s, dim, m: _traded(real_expand(s, dim, m), m)):
         out, bad = ck.combine_masks_device(seeds, d, P63)
     assert bad == bad_seeds
     rows = ref_chacha.expand_masks_noskip(seeds, d, P63)
-    rows[bad_seeds] = swapped(rows[bad_seeds]).astype(np.int64)
+    rows[bad_seeds] = _traded(rows[bad_seeds], P63).astype(np.int64)
     acc = np.zeros(d, dtype=np.int64)
     for row in rows:
         acc = ref_trunc_add_mod(acc, row, P63)
@@ -395,3 +410,37 @@ def test_fused_dispatch_rule_on_a_cuda_device(kwargs, n_seeds, modulus):
                                   ck._key_tensor(seeds, torch.device("cpu")), nb)):
         out, bad = ck.combine_masks_device(seeds, 8, modulus, **kwargs)
     assert [int(x) for x in out] == _host_fold(seeds, 8, modulus)
+
+
+@pytest.mark.parametrize("route", ["fused", "fused_rejected", "chunk", "chunk_forced", "empty"])
+def test_combine_returns_int64_on_every_route(route):
+    """Below a modulus of 2^63 every route returns numpy int64 ``[d]``, equal
+    to the host fold: the fused route (a card faked, the fold's plain
+    version), and again with every seed counted rejected under a lowered
+    zone and its exact mask traded for another, so the fix-up's sums cross
+    2^63; the chunk route, and again at 2^62 + 1, whose draws are rejected;
+    no seeds."""
+    d, modulus, n = {"fused": (16, P63, 512), "fused_rejected": (16, P63, 512),
+                     "chunk": (16, P63, 6), "chunk_forced": (48, FORCED, 6),
+                     "empty": (16, P63, 0)}[route]
+    seeds = _seeds(n, seed=15)
+    want = _host_fold(seeds, d, modulus)
+    calls = []
+    with ExitStack() as stack:
+        if route.startswith("fused"):
+            stack.enter_context(mock.patch.object(ck, "resolve_device", _cuda_by_default))
+            stack.enter_context(mock.patch.object(ck, "fold_masks_device", _fold_on_cpu(calls)))
+        if route == "fused_rejected":
+            real_expand = chacha.expand_masks
+            stack.enter_context(mock.patch.object(ck, "_zone", lambda m: (0x40000000, 0)))
+            stack.enter_context(mock.patch.object(
+                chacha, "expand_masks", lambda s, dim, m: _traded(real_expand(s, dim, m), m)))
+            traded = _traded(ref_chacha.expand_masks(seeds, d, modulus), modulus)
+            want = [sum(int(v) for v in col) % modulus for col in traded.T]
+            assert want != _host_fold(seeds, d, modulus)
+        out, bad = ck.combine_masks_device(seeds, d, modulus,
+                                           device=None if route.startswith("fused") else "cpu")
+    assert isinstance(out, np.ndarray) and out.dtype == np.int64 and out.shape == (d,)
+    assert out.tolist() == want
+    assert calls == ([n] if route.startswith("fused") else [])
+    assert bad == (list(range(n)) if route in ("fused_rejected", "chunk_forced") else [])

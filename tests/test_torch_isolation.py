@@ -51,6 +51,22 @@ def test_port_imports_no_jax_and_no_reference():
     assert count >= 55  # every submodule of the slices was imported
 
 
+def test_chacha_kernels_import_below_the_engine():
+    """``ops`` sits below ``engine`` in the package's layers: a fresh import
+    of the ChaCha kernels loads no engine."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import sda_tpu_torch.ops.chacha_kernel
+        assert "sda_tpu_torch.engine" not in sys.modules
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_binds_no_libsodium():
     """The port carries its own sealed boxes and signatures: no file of the
     package names libsodium's shared object or loads a library at run time

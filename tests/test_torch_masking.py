@@ -184,13 +184,16 @@ def test_full_masker_roundtrip_and_aggregation_property():
 
 def test_chacha_masker_uploads_seed_not_mask():
     """The mask a participant uploads is its 128-bit seed (4 words), which
-    the combine re-expands; a vector of the wrong length is refused."""
+    the combine re-expands; a vector of the wrong length, or seeds of
+    unequal lengths, are refused."""
     m = ChaChaMasker(modulus=433, dimension=50, seed_bitsize=128, device="cpu")
     seed, masked = m.mask(np.arange(50))
     assert len(seed) == 4
     assert positive(m.unmask((m.combine([seed]), masked)), 433).tolist() == list(range(50))
     with pytest.raises(Invalid):
         m.mask(np.arange(49))
+    with pytest.raises(Invalid, match="seed length"):
+        m.combine([seed, seed[:3]])
 
 
 def test_full_masker_out_of_domain_wire_masks_match_reference():
@@ -248,10 +251,11 @@ def test_maskers_take_the_device_route_on_the_card_by_default(monkeypatch):
     route (a card is faked; the routes run their plain versions);
     ``device="cpu"`` keeps the host fold."""
     from sda_tpu_torch.ops import chacha_kernel as ck
+    from sda_tpu_torch.utils import device as device_util
 
     calls = []
     real_combine, real_chacha = engine.device_combine, ck.combine_masks_device
-    monkeypatch.setattr(engine, "resolve_device",
+    monkeypatch.setattr(device_util, "resolve_device",
                         lambda device=None: torch.device("cuda" if device is None else device))
     monkeypatch.setattr(engine, "device_combine", lambda m, vecs, device=None: (
         calls.append(("full", device)) or real_combine(m, vecs, device="cpu")))
