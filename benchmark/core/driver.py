@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import gc
 import importlib
+import math
 import sys
 import time
 from dataclasses import dataclass, field
@@ -25,6 +26,10 @@ from benchmark.core import inputs, spec, trace
 from benchmark.reference.round import ReferenceRound
 
 SPAN_NAMES = ("aggregate", "mask_combine", "decode", "unmask")
+# the window's inputs are made in set-up for this many times the rounds that
+# the fastest warm-up round's pace fits in the window; any beyond are made
+# in the window
+AHEAD = 2.0
 
 
 @dataclass
@@ -106,7 +111,11 @@ class ProgramSystem:
                              f"is not the configuration's {stated}")
         self.route = spec.load_module("routes", traffic["route"])
         self.chunk, self.lanes = int(traffic["chunk"]), int(traffic["lanes"])
+        t = time.perf_counter()
         self.store = ResidentChunks(self.engine, cell, seed, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.store_s = time.perf_counter() - t
         self.masker = None
         if cell.masking:
             masker = _resolve(cell.masking["program"])
@@ -204,19 +213,42 @@ def _metrics(entries: list, record: Record) -> dict:
     return out
 
 
+def window_inputs(cell, seed: int, first: int, seconds: float, warm: list) -> list:
+    """The inputs of the rounds from ``first`` on that the window can reach
+    at ``AHEAD`` times the fastest warm-up round's pace."""
+    count = math.ceil(seconds / max(min(warm), 1e-6) * AHEAD) + 1
+    return [round_input(cell, seed, first + i) for i in range(count)]
+
+
+def setup_line(setup_s: float, phases: dict) -> str:
+    """The set-up's phases in seconds, and the rest of it named ``other``:
+    together they are ``setup_s``."""
+    parts = dict(phases, other=setup_s - sum(phases.values()))
+    return ("setup: " + ", ".join(f"{name} {s:.3f}" for name, s in parts.items())
+            + f" = {setup_s:.3f} s")
+
+
 def run_cell(cell, seed: int, seconds: float, traced: bool, device, t0: float | None = None,
-             system_factory=ProgramSystem):
+             system_factory=ProgramSystem, phases: dict | None = None, probe=None):
     """Run one cell; returns ``(result, checks)``. ``system_factory(cell,
     seed, device)`` builds what the rounds call: the program, or a stand-in
-    in the tests."""
+    in the tests. ``phases``: the set-up's seconds before this call, by
+    name; ``probe(when)``, if given, is called just before the window opens
+    and just after it closes, outside both the set-up and the window."""
     t0 = time.perf_counter() if t0 is None else t0
+    phases = dict(phases or {})
     device = torch.device(device)
     cuda = device.type == "cuda"
     traffic = cell.traffic
+    t = time.perf_counter()
     system = system_factory(cell, seed, device)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
+    store_s = getattr(system, "store_s", 0.0)
+    phases["program"] = time.perf_counter() - t - store_s
+    phases["store"] = store_s
+    t = time.perf_counter()
     off = trace.Spans(False)
     k = 0
     failed = 0
@@ -230,22 +262,34 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t0: float | 
             print(f"round {inp.index} failed: {exc!r}", file=sys.stderr, flush=True)
             return None
 
+    warm = []
     for _ in range(int(traffic["warmup_rounds"])):
         before = launch_counts()
+        r0 = time.perf_counter()
         one(round_input(cell, seed, k), off)
+        warm.append(time.perf_counter() - r0)
         if k == 0:
             after = launch_counts()
             print("routes: " + ", ".join(f"{n} {after[n] - before.get(n, 0)}"
                                          for n in sorted(after)), flush=True)
         k += 1
     warm_failed, failed = failed, 0
+    # the window's inputs and its latencies' places are made here, so that
+    # the window allocates nothing of the harness's own between the
+    # program's calls (nor frees: the sample holds what it replaces)
+    ahead = [] if traced or not warm else window_inputs(cell, seed, k, seconds, warm)
+    latencies = [0.0] * len(ahead)
+    sample = inputs.Sample(seed, traffic["check_rounds"])
     if cuda:
         torch.cuda.synchronize()
     # set-up's objects stay out of the collector's scans in the window
     gc.collect()
     gc.freeze()
     record = Record(cell=cell, setup_s=time.perf_counter() - t0)
-    sample = inputs.Sample(seed, traffic["check_rounds"])
+    phases["warmup"] = time.perf_counter() - t
+    print(setup_line(record.setup_s, phases), file=sys.stderr, flush=True)
+    if probe is not None:
+        probe("before")
 
     def keep(k, answer):
         if answer is not None:
@@ -262,18 +306,27 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t0: float | 
     else:
         start = time.perf_counter()
         while True:
-            inp = round_input(cell, seed, k)
+            i = record.rounds
+            inp = ahead[i] if i < len(ahead) else round_input(cell, seed, k)
             r0 = time.perf_counter()
             answer = one(inp, off)
             r1 = time.perf_counter()
             keep(k, answer)
-            del answer
-            record.latencies_s.append(r1 - r0)
+            del answer, inp
+            if i < len(latencies):
+                latencies[i] = r1 - r0
+            else:
+                latencies.append(r1 - r0)
             record.rounds += 1
             k += 1
             if r1 - start >= seconds:
                 break
         record.window_s = r1 - start
+        record.latencies_s = latencies[: record.rounds]
+    del ahead
+    sample.release()
+    if probe is not None:
+        probe("after")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     system.close()
     del system
@@ -288,8 +341,11 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t0: float | 
         half = len(record.latencies_s) // 2
         means = [sum(x) / len(x) * 1e3 for x in (record.latencies_s[:half],
                                                  record.latencies_s[half:])]
+        tenths = " ".join(f"{x.mean() * 1e3:.1f}"
+                          for x in np.array_split(np.array(record.latencies_s), 10))
         spread = (f" (latency p10 {q[0]:.3f} p50 {q[1]:.3f} p90 {q[2]:.3f} ms; mean of the "
-                  f"first half {means[0]:.3f}, of the second {means[1]:.3f} ms)")
+                  f"first half {means[0]:.3f}, of the second {means[1]:.3f} ms; of each tenth "
+                  f"{tenths})")
     print(f"run: set-up {record.setup_s:.3f} s, {record.rounds} rounds"
           + ("" if traced else f" in {record.window_s:.3f} s") + spread
           + f", {failed} failed, peak {peak} bytes", file=sys.stderr, flush=True)

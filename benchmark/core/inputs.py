@@ -115,12 +115,16 @@ def round_kernel_seed(seed: int, round_index: int) -> int:
 class Sample:
     """The rounds whose answers are compared: ``count`` of those offered,
     drawn from the seed by reservoir sampling, so that only the answers to
-    be compared are kept through the window."""
+    be compared are kept through the window. An answer that a later one
+    replaces is held until ``release()``, so that the sample frees nothing
+    inside the window: a freed 8 MB answer would change which of the
+    program's host arrays land on fresh pages."""
 
     def __init__(self, seed: int, count: int):
         self.count, self.seen = int(count), 0
         self.rng = numpy_rng(seed, _SAMPLE)
         self.slots: list = []
+        self.replaced: list = []
 
     def offer(self, round_index: int, answer) -> None:
         self.seen += 1
@@ -129,7 +133,12 @@ class Sample:
             return
         j = int(self.rng.integers(0, self.seen))
         if j < self.count:
+            self.replaced.append(self.slots[j][1])
             self.slots[j] = (round_index, answer)
+
+    def release(self) -> None:
+        """Free the answers that were replaced."""
+        self.replaced = []
 
     def kept(self) -> dict:
         """The kept answers by round."""

@@ -21,7 +21,6 @@ _T0 = time.perf_counter()
 import argparse  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
-import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -63,8 +62,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark.core import driver, spec, trace
+    from benchmark.core import driver, host, spec, trace
 
+    imports_s = time.perf_counter() - _T0
     cell = spec.load_cell(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"{cell.name} needs {cell.chips} CUDA card(s); this machine has "
@@ -75,16 +75,25 @@ def main(argv=None) -> int:
         return 2
     cores = pin_host()
     torch.set_num_threads(len(cores))
-    try:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=60).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as exc:
-        card = f"nvidia-smi not read: {exc!r}"
-    print(f"card: {card}; host cores {cores}", file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.cuda.init()
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize(device)
+    phases = {"imports": imports_s, "context": time.perf_counter() - t}
+
+    def clocks(when):
+        # nvidia-smi's readings stay out of the set-up and the window
+        if when == "before":
+            card = host.smi("name,power.limit,clocks.max.sm,pci.bus_id")
+            node, local = host.card_node(card.rpartition(",")[2])
+            print(f"card: {card}; host cores {cores} on node(s) {host.core_nodes(cores)}; the "
+                  f"card's node {node}, its local cores {local}", file=sys.stderr, flush=True)
+        print(f"clocks {when} the window: {host.smi(host.CLOCKS)}", file=sys.stderr, flush=True)
+
     try:
         result, checks = driver.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                                         torch.device("cuda", 0), t0=_T0)
+                                         device, t0=_T0, phases=phases, probe=clocks)
     except trace.TraceRefused as exc:
         print(f"refused: {exc}", file=sys.stderr)
         return 4

@@ -1,11 +1,14 @@
 """What the tests put in the program's place under the harness: the
-control (the reference in float64, one precision below the exact sum the
-configurations state) and the program with one fault planted."""
+control (the reference one precision below the exact sum the
+configurations state: float64, or float32 where float64 still holds the
+sum) and the program with one fault planted."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from benchmark.core import inputs, spec
 from benchmark.core.driver import ProgramSystem
 from benchmark.reference.round import ReferenceRound
 
@@ -30,6 +33,59 @@ class ControlSystem:
 
     def close(self):
         self.ref = None
+
+
+class Float32Control:
+    """The round's answer computed in float32, the precision below the
+    exact sum that float64 still holds here: the values' sum reaches 2^33,
+    past float32's 24-bit mantissa, at the cell's size."""
+
+    def __init__(self, cell, seed, device):
+        self.cell, self.seed, self.device = cell, seed, device
+        cfg, traffic = cell.config, cell.traffic
+        # the route draws the rounds' cohorts as the program's set-up would
+        # (the threshold route installs the walk over more than 2^63 cohorts)
+        spec.load_module("routes", traffic["route"])
+        self.chunk = int(traffic["chunk"])
+        self.per_round = int(traffic["participants"]) // self.chunk
+        self.resident = int(cfg["resident_participants"]) // self.chunk
+        self.totals = {}
+
+    def _total(self, c):
+        got = self.totals.get(c)
+        if got is None:
+            cfg = self.cell.config
+            got = 0
+            for block, count in inputs.chunk_blocks(self.chunk):
+                limbs = inputs.participant_limbs(self.seed, c, block, count, int(cfg["dimension"]),
+                                                 int(cfg["value_bits"]), self.device)
+                got = got + (limbs[..., 0] + limbs[..., 1] * 65536).to(torch.float32).sum(dim=0)
+            self.totals[c] = got
+        return got
+
+    def aggregate(self, inp):
+        return inp.index
+
+    def combine(self, inp):
+        return None
+
+    def decode(self, k):
+        chunks = inputs.round_chunks(self.seed, k, self.per_round, self.resident)
+        total = sum(self._total(c) for c in chunks)
+        return torch.fmod(total, float(self.cell.config["modulus"])).cpu().numpy().astype(np.int64)
+
+    def unmask(self, mask, vals):
+        return vals
+
+    def close(self):
+        self.totals = None
+
+
+def control_for(cell):
+    """The cell's control: float64, unless a round's sum of values fits
+    float64's 53-bit mantissa and float64 would be exact; then float32."""
+    largest = int(cell.traffic["participants"]) * ((1 << int(cell.config["value_bits"])) - 1)
+    return ControlSystem if largest >= 1 << 53 else Float32Control
 
 
 class _Faulty(ProgramSystem):

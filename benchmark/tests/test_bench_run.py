@@ -88,3 +88,17 @@ def test_the_sample_keeps_only_what_it_compares():
         again.offer(k, [k])
     assert list(again.kept()) == picks[21:24]
     assert 0 < sum(k < 25 for k in picks) / len(picks) < 0.6
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_setup_line_sums_to_setup_s(kind, capsys):
+    result, _ = driver.run_cell(tiny_cell(kind), 2**32 + 5, 0.01, False, "cpu",
+                                phases={"imports": 0.0, "context": 0.0})
+    (line,) = [s for s in capsys.readouterr().err.splitlines() if s.startswith("setup: ")]
+    parts, total = line.removeprefix("setup: ").split(" = ")
+    phases = dict(p.rsplit(" ", 1) for p in parts.split(", "))
+    assert list(phases) == ["imports", "context", "program", "store", "warmup", "other"]
+    setup_s = result["metrics"]["setup_s"]["value"]
+    assert total == f"{setup_s:.3f} s"
+    assert math.isclose(sum(float(v) for v in phases.values()), setup_s, abs_tol=0.004)
+    assert all(float(v) >= 0 for k, v in phases.items() if k != "other")

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from benchmark.core import driver, inputs, spec, wide_walk
-from benchmark.tests.systems import _Faulty
+from benchmark.tests.systems import Float32Control, _Faulty
 
 CONFIG = json.loads((spec.BENCH_DIR / "configs" / "tss-728-p20.json").read_text())
 # the cell's rounds are drawn from C(207, 128) cohorts, past int64
@@ -69,49 +69,6 @@ class DroppedClerk(_Faulty):
             return out
 
         eng._clerk_bytes = dropped
-
-
-class Float32Control:
-    """The round's answer computed in float32, the precision below the
-    exact sum that float64 still holds here: the values' sum reaches 2^33,
-    past float32's 24-bit mantissa, at the cell's size."""
-
-    def __init__(self, cell, seed, device):
-        self.cell, self.seed, self.device = cell, seed, device
-        cfg, traffic = cell.config, cell.traffic
-        self.chunk = int(traffic["chunk"])
-        self.per_round = int(traffic["participants"]) // self.chunk
-        self.resident = int(cfg["resident_participants"]) // self.chunk
-        self.totals = {}
-
-    def _total(self, c):
-        got = self.totals.get(c)
-        if got is None:
-            cfg = self.cell.config
-            got = 0
-            for block, count in inputs.chunk_blocks(self.chunk):
-                limbs = inputs.participant_limbs(self.seed, c, block, count, int(cfg["dimension"]),
-                                                 int(cfg["value_bits"]), self.device)
-                got = got + (limbs[..., 0] + limbs[..., 1] * 65536).to(torch.float32).sum(dim=0)
-            self.totals[c] = got
-        return got
-
-    def aggregate(self, inp):
-        return inp.index
-
-    def combine(self, inp):
-        return None
-
-    def decode(self, k):
-        chunks = inputs.round_chunks(self.seed, k, self.per_round, self.resident)
-        total = sum(self._total(c) for c in chunks)
-        return torch.fmod(total, float(self.cell.config["modulus"])).cpu().numpy().astype(np.int64)
-
-    def unmask(self, mask, vals):
-        return vals
-
-    def close(self):
-        self.totals = None
 
 
 @pytest.mark.parametrize("fault", [WrongSubsetMatrix, DroppedClerk], ids=lambda f: f.__name__)
